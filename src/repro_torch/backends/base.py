@@ -32,10 +32,11 @@ class ExecutionBackend:
     """Base class; concrete backends override placement + ``_lower_*``
     program lowerings.
 
-    ``use_kernel`` selects the fused mean + sqdev kernel inside
-    ``all_mean``: ``True``/``False`` force it; ``None`` (default) turns it
-    on whenever the parameters are on CUDA.  ``False`` keeps the
-    reference's plain sync and is never the default.
+    ``use_kernel`` selects the kernels inside the syncs and the QSGD step
+    (the fused mean + sqdev kernel, and QSGD's sqnorm / quantize /
+    dequantize): ``True``/``False`` force them; ``None`` (default) turns
+    them on whenever the parameters are on CUDA.  ``False`` keeps the
+    reference's plain arithmetic and is never the default.
     """
 
     name = "base"
@@ -78,6 +79,18 @@ class ExecutionBackend:
         return self.lower(collective_ops.all_mean_op(),
                           sync_momentum=sync_momentum)
 
+    def qsgd_step(self, loss_fn, optimizer, bits: int) -> Callable:
+        """(W, opt_state, batch, lr, key) -> (W, opt_state, metrics);
+        quantized gradient exchange every call (QSGD)."""
+        return self.lower(collective_ops.qsgd_step_op(bits),
+                          loss_fn=loss_fn, optimizer=optimizer)
+
+    def quantized_all_mean(self, bits: int) -> Callable:
+        """(W, anchor, key) -> (W, new_anchor, s_k): byte-true QSGD deltas
+        from the full-precision anchor — int8 levels + norms on the wire,
+        dequantized at the receiver, averaged and re-applied."""
+        return self.lower(collective_ops.quantized_all_mean_op(bits))
+
     # ------------------------------------------------------------ placement
     def put_params(self, W: Pytree) -> Pytree:
         return tree_map(lambda x: x.to(self.device), W)
@@ -85,9 +98,18 @@ class ExecutionBackend:
     def put_opt(self, opt_state: Pytree, W: Pytree) -> Pytree:
         return tree_map(lambda x: x.to(self.device), opt_state)
 
+    def put_replicated(self, tree: Pytree) -> Pytree:
+        """Place an unstacked tree (the qsgd_periodic anchor) on this
+        backend's device."""
+        return tree_map(lambda x: x.to(self.device), tree)
+
     def init_opt_state(self, optimizer, W: Pytree) -> Pytree:
         return self.put_opt(
             optimizer.init(W, n_replicas=avg.n_replicas(W)), W)
+
+    def collapse(self, W: Pytree) -> Pytree:
+        """Replica mean without the probe (anchor seeding)."""
+        return avg.replica_mean(W)
 
 
 _BACKENDS: Dict[str, Type[ExecutionBackend]] = {}

@@ -1,5 +1,5 @@
 """CollectiveOp IR — the declarative communication layer (port of
-``repro/backends/ops.py``; the QSGD, hierarchical and DaSGD ops and the
+``repro/backends/ops.py``; the hierarchical and DaSGD ops and the
 ``InFlightOp`` handle come with the strategies that emit them).
 
 A ``CollectiveOp`` names one backend program: the collective kind, the wire
@@ -23,6 +23,13 @@ class WireFormat:
     kind: str = "f32"               # "f32" | "qsgd_int8"
     bits: int = 32
     norm_bytes_per_tensor: int = 0
+
+
+def qsgd_wire(bits: int, *, norms: bool = True) -> WireFormat:
+    """QSGD levels: ``bits``-bit components, plus 4-byte per-tensor norms
+    when ``norms`` (the byte-true anchor-delta exchange counts them; the
+    every-step gradient baseline keeps the paper's levels-only charge)."""
+    return WireFormat("qsgd_int8", int(bits), 4 if norms else 0)
 
 
 @dataclass(frozen=True)
@@ -65,6 +72,14 @@ def full_step_op() -> CollectiveOp:
     return CollectiveOp("full_step", "all_reduce", is_step=True)
 
 
+def qsgd_step_op(bits: int) -> CollectiveOp:
+    """QSGD baseline: quantized gradients every step.  Levels are not
+    ring-reducible -> gather+broadcast (paper §IV); the paper's accounting
+    charges bits/32 of the volume, norms excluded."""
+    return CollectiveOp("qsgd_step", "gather_bcast", is_step=True,
+                        wire=qsgd_wire(bits, norms=False))
+
+
 def all_mean_op() -> CollectiveOp:
     """The replica parameter mean + variance probe S_k (Algorithm 2
     lines 10-11) — one full-precision ring all-reduce."""
@@ -74,3 +89,11 @@ def all_mean_op() -> CollectiveOp:
 def opt_mean_op() -> CollectiveOp:
     """Optimizer-state mean across replicas (sync_momentum knob)."""
     return CollectiveOp("opt_mean", "all_reduce")
+
+
+def quantized_all_mean_op(bits: int) -> CollectiveOp:
+    """Byte-true QSGD anchor-delta exchange: int8 levels + per-tensor norms
+    are gathered and dequantized at the receiver, so the wire carries
+    ~bits/32 of the f32 volume plus the norm side-channel."""
+    return CollectiveOp("quantized_all_mean", "gather_bcast",
+                        wire=qsgd_wire(bits))

@@ -3,13 +3,19 @@ dim 0 of every leaf (port of ``repro/backends/vmap.py``).
 
 The local step loops over the replicas on views of the stacked buffers (the
 reference ``vmap``s); the "collectives" are reductions over dim 0.  The
-sync runs the fused mean + sqdev CUDA kernel whenever the parameters are on
-the card, unless the backend was built with ``use_kernel=False``.
+syncs and the QSGD step run the CUDA kernels whenever the parameters are
+on the card, unless the backend was built with ``use_kernel=False``.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.backends.base import ExecutionBackend, register_backend
 from repro_torch.core import averaging as avg
+from repro_torch.core import prng
+from repro_torch.core import qsgd as qsgd_mod
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.tree import tree_leaves
 
 
@@ -45,3 +51,47 @@ class VmapBackend(ExecutionBackend):
 
     def _lower_opt_mean(self, op):
         return avg.sync_opt_state
+
+    def _lower_qsgd_step(self, op, *, loss_fn, optimizer):
+        return qsgd_mod.make_qsgd_step(loss_fn, optimizer, op.wire.bits,
+                                       use_kernel=self.use_kernel is not False)
+
+    def _lower_quantized_all_mean(self, op):
+        """Byte-true QSGD-quantized parameter deltas from the shared
+        full-precision anchor, leaf by leaf: each replica r quantizes its
+        f32 delta ``w_r − anchor`` under ``split(fold_in(key, r),
+        n_leaves)[leaf]`` into (int8 levels, norm); the receiver
+        dequantizes all R into one (R, ...) f32 buffer, whose replica mean
+        and Σ_r ||dq_r − mean||² the fused mean + sqdev kernel gives in one
+        pass.  The anchor moves by the mean, in place, and is written into
+        every replica.  Returns (W, anchor, S_k)."""
+        bits = op.wire.bits
+        kernel = self.use_kernel is not False
+
+        @torch.no_grad()
+        def qsync(W, anchor, key):
+            leaves, anchors = tree_leaves(W), tree_leaves(anchor)
+            R = leaves[0].shape[0]
+            leaf_keys = [prng.split(k, len(leaves))
+                         for k in qsgd_mod.replica_keys(key, range(R))]
+            s_k = 0
+            for i, (w, a) in enumerate(zip(leaves, anchors)):
+                dq = torch.empty(w.shape, dtype=torch.float32,
+                                 device=w.device)
+                for r in range(R):
+                    lv, nm = qsgd_mod.quantize(
+                        w[r].to(torch.float32) - a, leaf_keys[r][i], bits,
+                        use_kernel=kernel)
+                    dq[r] = qsgd_mod.dequantize(lv, nm, bits,
+                                                use_kernel=kernel)
+                if kernel:
+                    mean_d, sq = kops.param_mean_and_sqdev(dq)
+                else:
+                    mean_d, sq = kref.mean_and_sqdev_ref(dq)
+                del dq
+                s_k = s_k + sq / R
+                a.add_(mean_d)
+                w.copy_(a.unsqueeze(0).expand_as(w))
+            return W, anchor, s_k
+
+        return qsync

@@ -1,0 +1,85 @@
+"""The reference's random key stream, without JAX.
+
+The reference draws QSGD's stochastic-rounding uniforms from
+``jax.random`` with the threefry2x32 generator in its partitionable form
+(the default of the JAX release the reference runs).  Matching it bit for
+bit keeps the port's quantized exchanges on the reference's trajectory, so
+this module reproduces the four functions the reference uses:
+
+* ``prng_key(seed)``   — ``jax.random.PRNGKey(seed)``: the pair (0, seed);
+* ``fold_in(key, d)``  — threefry(key, (0, d));
+* ``split(key, n)``    — [threefry(key, (0, i)) for i < n];
+* ``uniform(key, shape)`` — f32 in [0, 1): element i (row-major) hashes the
+  counter pair (i >> 32, i & 0xFFFFFFFF); its 32 bits are x0 ^ x1, and the
+  float is ``bitcast((bits >> 9) | 0x3F800000) − 1``.
+
+A key is a pair of Python ints, worked on the host.  Only the per-element
+bits of ``uniform`` are computed on the device, in int64 tensors masked to
+32 bits (torch's uint32 has no shifts or xor on CUDA).  ``threefry2x32``
+is written with plain operators, so the same code hashes Python ints and
+tensors.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Sequence, Tuple
+
+import torch
+
+Key = Tuple[int, int]
+
+MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def threefry2x32(key: Key, x0, x1):
+    """Threefry-2x32 with 20 rounds (Salmon et al. 2011) of the counter
+    pair (x0, x1) under ``key``.  x0 and x1 are ints in [0, 2^32) or int64
+    tensors holding such values; returns the hashed pair in the same
+    form."""
+    k0, k1 = key
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & MASK
+    x1 = (x1 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK
+            x1 = ((x1 << r) & MASK) | (x1 >> (32 - r))
+            x1 = x1 ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK
+    return x0, x1
+
+
+def prng_key(seed: int) -> Key:
+    if not 0 <= seed < 1 << 32:
+        raise ValueError(f"seed must lie in [0, 2^32), got {seed}")
+    return (0, seed & MASK)
+
+
+def fold_in(key: Key, data: int) -> Key:
+    return threefry2x32(key, 0, data & MASK)
+
+
+def split(key: Key, n: int) -> List[Key]:
+    return [threefry2x32(key, 0, i) for i in range(n)]
+
+
+def replica_keys(key: Key, idx: Sequence[int]) -> List[Key]:
+    """Per-replica keys: ``fold_in`` on the global replica index, the one
+    derivation every backend shares."""
+    return [fold_in(key, int(i)) for i in idx]
+
+
+def uniform(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """f32 uniforms in [0, 1) of ``shape`` on ``device``, bit-identical to
+    ``jax.random.uniform(key, shape)``."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(key, idx >> 32, idx & MASK)
+    del idx
+    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    del b0, b1
+    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(
+        tuple(shape))

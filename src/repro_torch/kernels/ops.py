@@ -4,7 +4,20 @@ kernel for a CUDA tensor and uses the plain version for a CPU tensor."""
 from __future__ import annotations
 
 from repro_torch.kernels import param_variance as _pv
+from repro_torch.kernels import qsgd_quant as _qq
 
 
 def param_mean_and_sqdev(w):
     return _pv.mean_and_sqdev(w)
+
+
+def qsgd_sqnorm(x):
+    return _qq.sqnorm(x)
+
+
+def qsgd_quantize(x, u, norm, bits: int = 8):
+    return _qq.quantize(x, u, norm, bits)
+
+
+def qsgd_dequantize(levels, norm, bits: int = 8):
+    return _qq.dequantize(levels, norm, bits)

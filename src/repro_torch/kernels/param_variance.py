@@ -1,10 +1,8 @@
 """Fused replica-mean + variance-probe kernel (port of
 ``repro/kernels/param_variance.py::mean_and_sqdev``).
 
-The kernel is CUDA C++ for Hopper, ``csrc/mean_sqdev.cu``.  It is compiled
-with ``nvcc`` at first use into ``build/repro_torch/`` at the root of the
-checkout (the file name carries a hash of the source, so an edited source
-is rebuilt) and loaded with ``ctypes``; nothing is compiled when this
+The kernel is CUDA C++ for Hopper, ``csrc/mean_sqdev.cu``, built and
+loaded by ``kernels/build.py`` at first use; nothing is compiled when this
 module is imported.  ``mean_and_sqdev`` sends a CPU tensor to the plain
 version (``kernels/ref.py``) and launches the kernel for a CUDA tensor —
 there is no fallback: a kernel that fails to build or launch raises.
@@ -13,76 +11,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.ref import mean_and_sqdev_ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "mean_sqdev.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-THREADS = 256        # kThreads in the source
-MAX_BLOCKS = 4096    # grid of pass 1; a function of N only (determinism)
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    candidates = [shutil.which("nvcc")]
-    if CUDA_HOME:
-        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
-    for c in candidates:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libmean_sqdev-{digest}.so"
-
-
-def build() -> str:
-    """Compile the kernel if this source has not been built yet; returns
-    the compiler's resource report (``-Xptxas -v``), empty when the
-    library was already there."""
-    out = library_path()
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {SOURCE.name} failed "
-                           f"({' '.join(cmd)}):\n{proc.stderr}")
-    os.replace(tmp, out)       # atomic: a concurrent loader sees all or none
-    return proc.stderr
+SOURCE = build.CSRC / "mean_sqdev.cu"
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    build()
-    lib = ctypes.CDLL(str(library_path()))
-    fn = lib.repro_mean_sqdev_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
-def grid_blocks(n_cols: int) -> int:
-    return max(1, min(-(-n_cols // THREADS), MAX_BLOCKS))
+    p, i64 = ctypes.c_void_p, ctypes.c_longlong
+    return build.load(SOURCE, {
+        "repro_mean_sqdev_f32": (p, p, p, p, i64, i64, ctypes.c_int, p)})
 
 
 def mean_and_sqdev(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -104,7 +47,7 @@ def mean_and_sqdev(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError("mean_and_sqdev needs a contiguous tensor")
     rows = w.shape[0]
     cols = w.numel() // rows
-    blocks = grid_blocks(cols)
+    blocks = build.grid_blocks(cols)
     mean = torch.empty(w.shape[1:], dtype=torch.float32, device=w.device)
     partials = torch.empty(blocks, dtype=torch.float32, device=w.device)
     sq = torch.empty((), dtype=torch.float32, device=w.device)
@@ -114,9 +57,7 @@ def mean_and_sqdev(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             w.data_ptr(), mean.data_ptr(), partials.data_ptr(),
             sq.data_ptr(), rows, cols, blocks,
             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mean_sqdev kernel launch failed: CUDA error "
-                           f"{err}")
+    build.check(err, "mean_sqdev")
     mean_and_sqdev.launches += 1
     return mean, sq
 

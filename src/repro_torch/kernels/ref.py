@@ -2,7 +2,7 @@
 wrapper, and what ``chip_smoke.py`` holds each CUDA kernel against)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -13,3 +13,47 @@ def mean_and_sqdev_ref(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     mean = wf.mean(dim=0)
     sq = (wf - mean[None]).square().sum()
     return mean.reshape(w.shape[1:]), sq
+
+
+def qsgd_scale(bits: int) -> int:
+    """s = 2^(bits−1) − 1, the largest QSGD level."""
+    if not 2 <= bits <= 8:
+        raise ValueError(f"QSGD levels are int8: bits must lie in [2, 8], "
+                         f"got {bits}")
+    return (1 << (bits - 1)) - 1
+
+
+def sqnorm_ref(x: torch.Tensor) -> torch.Tensor:
+    """Σ x² in f32, as a scalar tensor."""
+    return x.to(torch.float32).square().sum()
+
+
+def quantize_ref(x: torch.Tensor, u: torch.Tensor, bits: int = 8,
+                 norm: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """QSGD with external uniforms u: (int8 levels of x's shape, f32 norm).
+    ``norm`` defaults to ||x||₂; a zero norm gives zero levels.  A level of
+    s + 1 (reachable when |x|/norm rounds just above 1) is clamped to the
+    int8 range before the cast, as XLA's saturating cast does."""
+    s = qsgd_scale(bits)
+    xf = x.to(torch.float32)
+    if norm is None:
+        norm = torch.sqrt(sqnorm_ref(xf))
+    norm = norm.reshape(())
+    scaled = torch.where(norm > 0, xf.abs() / norm * s,
+                         torch.zeros((), dtype=torch.float32,
+                                     device=x.device))
+    floor = torch.floor(scaled)
+    mag = floor + (u < (scaled - floor)).to(torch.float32)
+    levels = (torch.sign(xf) * mag).clamp_(-128, 127).to(torch.int8)
+    return levels, norm
+
+
+def dequantize_ref(levels: torch.Tensor, norm: torch.Tensor,
+                   bits: int = 8) -> torch.Tensor:
+    """levels · (norm / s) in f32.  s is a tensor on norm's device: a CUDA
+    tensor divided by a Python number is multiplied by its reciprocal,
+    which rounds differently from the division."""
+    s = torch.full((), qsgd_scale(bits), dtype=torch.float32,
+                   device=norm.device)
+    return levels.to(torch.float32) * (norm.reshape(()) / s)

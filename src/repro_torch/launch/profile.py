@@ -1,6 +1,8 @@
 """Where a training step's device time goes, by ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [training flags]
+    PYTHONPATH=src python -m repro_torch.launch.profile --warm 1 --window 2 \
+        --method qsgd --no-reduced --layers 4
 
 Builds the engine exactly as ``launch/train.py`` does (same flags), runs
 ``--warm`` iterations unprofiled, then profiles the next ``--window``
@@ -21,6 +23,7 @@ from repro_torch.launch import train
 
 CATEGORIES = (        # first match wins; matched against the kernel name
     ("mean_sqdev", ("mean_sqdev",)),
+    ("qsgd kernels", ("sqnorm_pass", "quantize_kernel")),
     ("matmul", ("gemm", "cutlass", "sm90_xmma", "nvjet", "cublas")),
     ("softmax / logsumexp", ("softmax", "logsumexp")),
     ("reduction", ("reduce",)),

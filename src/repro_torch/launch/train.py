@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
         --method adpsgd --steps 200 --replicas 4 --backend vmap
+    PYTHONPATH=src python -m repro_torch.launch.train --method qsgd_periodic
 
 Runs on the card; ``--device cpu`` runs on the CPU.  ``--method`` offers
 the strategies the port has registered, ``--backend`` its backends.  The
@@ -28,6 +29,7 @@ from repro_torch.models import model as M
 from repro_torch.optim import get_optimizer, make_lr_schedule
 from repro_torch.runtime.engine import PeriodicEval, TrainerEngine
 from repro_torch.strategies import available_strategies, make_strategy
+from repro_torch.tree import tree_leaves
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -39,8 +41,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     choices=available_backends())
     ap.add_argument("--sync-kernel", default="auto",
                     choices=["auto", "on", "off"],
-                    help="fused mean+sqdev kernel in the sync (auto = on "
-                         "whenever the parameters are on CUDA)")
+                    help="the CUDA kernels of the syncs and the QSGD step "
+                         "(auto = on whenever the parameters are on CUDA)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--steps", type=int, default=200)
@@ -120,6 +122,12 @@ def main(argv: Optional[Sequence[str]] = None):
     print(f"  syncs={hist.n_syncs} mean_period="
           f"{args.steps / max(1, hist.n_syncs):.2f} "
           f"final_p={hist.period_history[-1] if hist.period_history else 1}")
+    leaves = tree_leaves(hist.final_W)
+    op = engine.strategy.sync_op()
+    per_event = op.wire_bytes(sum(x.numel() for x in leaves) // args.replicas,
+                              args.replicas, n_tensors=len(leaves))
+    print(f"  wire: {op.name} ({op.wire.kind}, {op.wire.bits} bits) "
+          f"{per_event:.3e} B/node per event x {hist.n_syncs} events")
     if hist.evals:
         print(f"  evals={len(hist.evals)} last@step{hist.eval_steps[-1]}: "
               + " ".join(f"{k}={v:.4f}" for k, v in hist.evals[-1].items()))

@@ -27,6 +27,7 @@ import torch
 from repro_torch.backends import ExecutionBackend, resolve_backend
 from repro_torch.configs.base import AveragingConfig
 from repro_torch.core import averaging as avg
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike
 from repro_torch.strategies import CommunicationStrategy, make_strategy
 
@@ -157,9 +158,8 @@ class TrainerEngine:
         self.callbacks: List[Callback] = list(callbacks)
         if track_variance_every:
             self.callbacks.append(VarianceProbe(track_variance_every))
-        # the reference folds (k, j) into PRNGKey(seed + 17); the periodic
-        # strategies never read the key, so the port passes a stateless int
-        self._base_key = seed + 17
+        # the reference's key stream: fold (k, j) into PRNGKey(seed + 17)
+        self._base_key = prng.prng_key(seed + 17)
         self.history = TrainHistory(method=self.strategy.name)
         self.W: Optional[Pytree] = None
         self.opt_state: Optional[Pytree] = None
@@ -184,9 +184,10 @@ class TrainerEngine:
             lr = self.lr_fn(k)
             hist.lrs.append(lr)
             batch = self.data_fn(k)
+            step_key = prng.fold_in(self._base_key, k)
             step_info: Dict[str, Any] = {}
             for j, action in enumerate(self.strategy.actions(k)):
-                key = (self._base_key * 1_000_003 + k) * 16 + j
+                key = prng.fold_in(step_key, j)
                 self.W, self.opt_state, info = self.strategy.dispatch(
                     action, self.W, self.opt_state, batch, lr, key)
                 if "loss" in info:

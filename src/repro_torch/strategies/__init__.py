@@ -1,8 +1,8 @@
 """Pluggable communication strategies (see base.py for the API).
 
 Importing this package registers the ported strategies: fullsgd / cpsgd /
-adpsgd / decreasing.  QSGD, hierarchical, AdaComm and DaSGD come in later
-parts of the port.
+adpsgd / decreasing / qsgd / qsgd_periodic.  Hierarchical, AdaComm and
+DaSGD come in later parts of the port.
 """
 from repro_torch.strategies.base import (  # noqa: F401
     CommunicationStrategy, available_strategies, comm_stats_for,
@@ -11,4 +11,7 @@ from repro_torch.strategies.base import (  # noqa: F401
 from repro_torch.strategies.periodic import (  # noqa: F401
     AdaptivePeriodStrategy, ConstantPeriodStrategy, DecreasingPeriodStrategy,
     FullSGDStrategy, PeriodicAveragingStrategy,
+)
+from repro_torch.strategies.quantized import (  # noqa: F401
+    QSGDPeriodicStrategy, QSGDStrategy,
 )

@@ -79,7 +79,23 @@ def test_wire_bytes_identical(op):
                 j.wire_bytes(n_params, n_nodes)
 
 
-@pytest.mark.parametrize("method", ["adpsgd", "cpsgd", "decreasing", "fullsgd"])
+@pytest.mark.parametrize("op", ["qsgd_step_op", "quantized_all_mean_op"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_qsgd_wire_bytes_identical(op, bits):
+    t, j = getattr(torch_ops, op)(bits), getattr(jax_ops, op)(bits)
+    assert (t.name, t.collective, t.is_step) == (j.name, j.collective, j.is_step)
+    assert t.collective == "gather_bcast"
+    assert (t.wire.kind, t.wire.bits, t.wire.norm_bytes_per_tensor) == \
+        (j.wire.kind, j.wire.bits, j.wire.norm_bytes_per_tensor)
+    for n_params in (1, 532_202, 371_458_048):
+        for n_nodes in (1, 2, 4, 8, 16):
+            for n_tensors in (0, 15, 29):
+                assert t.wire_bytes(n_params, n_nodes, n_tensors) == \
+                    j.wire_bytes(n_params, n_nodes, n_tensors)
+
+
+@pytest.mark.parametrize("method", ["adpsgd", "cpsgd", "decreasing", "fullsgd",
+                                    "qsgd", "qsgd_periodic"])
 def test_comm_stats_identical(method):
     assert method in available_strategies()
     args = (532_202, 8, 60, 12, GBPS_10)

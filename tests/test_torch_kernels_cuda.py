@@ -1,15 +1,21 @@
-"""The CUDA mean_and_sqdev kernel against its plain version, on the card.
+"""The CUDA kernels (mean_and_sqdev; QSGD's sqnorm, quantize and
+dequantize) against their plain versions, on the card.
 
 Imports neither jax nor the reference, so it runs where the port runs:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest \\
         tests/test_torch_kernels_cuda.py
 
-Without a CUDA device every case skips (the kernel has no CPU mode)."""
+Without a CUDA device every case skips (the kernels have no CPU mode).
+Tolerances: mean atol 1e-6, sq and sqnorm rtol 1e-5 (f32 sums in another
+order); levels and dequantized values bit-identical given the same norm
+and uniforms."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import prng
+from repro_torch.kernels import qsgd_quant
 from repro_torch.kernels import ref as torch_ref
 from repro_torch.kernels.param_variance import mean_and_sqdev
 
@@ -59,3 +65,80 @@ def test_sync_uses_kernel_on_cuda(cuda):
     assert mean_and_sqdev.launches == before + 2
     assert abs(float(s_k) - want) <= 1e-5 * want
     assert torch.equal(W["a"], W["a"][:1].expand_as(W["a"]))
+
+
+QSGD_CASES = [(7,), (1000,), (1024,), (4097,), (33, 17), (2048, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", QSGD_CASES)
+@pytest.mark.parametrize("bits", [4, 8])
+def test_qsgd_kernels_match_plain(cuda, shape, bits):
+    rng = np.random.RandomState(len(shape) * 1000 + shape[0])
+    x = torch.from_numpy((rng.randn(*shape) * 3.0).astype(np.float32)).to(cuda)
+    u = torch.from_numpy(rng.uniform(size=shape).astype(np.float32)).to(cuda)
+    before = (qsgd_quant.sqnorm.launches, qsgd_quant.quantize.launches,
+              qsgd_quant.dequantize.launches)
+    sq, sq2 = qsgd_quant.sqnorm(x), qsgd_quant.sqnorm(x)
+    norm = torch.sqrt(sq)
+    lv = qsgd_quant.quantize(x, u, norm, bits)
+    dq = qsgd_quant.dequantize(lv, norm, bits)
+    torch.cuda.synchronize()
+    assert (qsgd_quant.sqnorm.launches, qsgd_quant.quantize.launches,
+            qsgd_quant.dequantize.launches) == (before[0] + 2, before[1] + 1,
+                                                before[2] + 1)
+    torch.testing.assert_close(sq, torch_ref.sqnorm_ref(x), rtol=1e-5, atol=0)
+    assert torch.equal(sq, sq2)
+    lv_ref, _ = torch_ref.quantize_ref(x, u, bits, norm=norm)
+    assert lv.dtype == torch.int8 and torch.equal(lv, lv_ref)
+    assert torch.equal(dq, torch_ref.dequantize_ref(lv, norm, bits))
+    s = (1 << (bits - 1)) - 1
+    assert float((dq - x).abs().max()) <= float(norm) / s * (1 + 1e-6)
+
+
+@pytest.mark.cuda
+def test_qsgd_kernels_zero_and_saturation(cuda):
+    z = torch.zeros(128, device=cuda)
+    norm = torch.sqrt(qsgd_quant.sqnorm(z))
+    lv = qsgd_quant.quantize(z, z, norm)
+    assert float(norm) == 0.0 and not lv.any()
+    assert not qsgd_quant.dequantize(lv, norm).any()
+    x = torch.tensor([1.5, -1.5, 0.25], device=cuda)
+    near = torch.tensor(1.5 * (1 - 2**-20), device=cuda)
+    lv = qsgd_quant.quantize(x, torch.zeros(3, device=cuda), near)
+    assert lv.tolist()[:2] == [127, -128]
+    assert torch.equal(lv, torch_ref.quantize_ref(
+        x, torch.zeros(3, device=cuda), 8, norm=near)[0])
+
+
+@pytest.mark.cuda
+def test_uniform_on_card_equals_cpu(cuda):
+    key = prng.split(prng.fold_in(prng.prng_key(17), 3), 4)[2]
+    shape = (257, 1031)
+    assert torch.equal(prng.uniform(key, shape, device=cuda).cpu(),
+                       prng.uniform(key, shape, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_quantized_sync_uses_kernels_on_cuda(cuda):
+    from repro_torch.backends import VmapBackend
+    g = torch.Generator().manual_seed(0)
+    W = {"a": torch.randn(4, 300, generator=g), "n": {},
+         "b": [torch.randn(4, 7, 5, generator=g)]}
+    anchor = {"a": W["a"].mean(0), "n": {}, "b": [W["b"][0].mean(0)]}
+    key = prng.fold_in(prng.prng_key(17), 1)
+
+    def run(device, use_kernel):
+        mv = lambda t: {"a": t["a"].to(device), "n": {},
+                        "b": [t["b"][0].to(device)]}
+        return VmapBackend(use_kernel=use_kernel, device=device) \
+            .quantized_all_mean(8)(mv(W), mv(anchor), key)
+
+    before = (mean_and_sqdev.launches, qsgd_quant.quantize.launches)
+    Wk, ak, sk = run(cuda, None)
+    assert (mean_and_sqdev.launches, qsgd_quant.quantize.launches) == \
+        (before[0] + 2, before[1] + 2 * 4)
+    Wp, ap, sp = run(cuda, False)
+    assert abs(float(sk) - float(sp)) <= 1e-5 * abs(float(sp))
+    torch.testing.assert_close(Wk["a"], Wp["a"], rtol=1e-6, atol=1e-6)
+    assert torch.equal(Wk["a"], Wk["a"][:1].expand_as(Wk["a"]))
