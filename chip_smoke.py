@@ -14,12 +14,16 @@ published width, cut to 4 layers, R = 4 replicas, adamw:
      sqnorm, quantize, dequantize and mean + sqdev in every quantized sync);
 * 3c qsgd, 8 steps (quantized gradients every step);
 
-and times each kernel beside its plain version, a library call and its
-bound.  Each path is driven with the launch counts set to 0 just before
-it and read just after.
+then serves OLMo-1B at its published width and all 16 layers through the
+server's entry points (phase 5: a prefill step with the flash-attention
+kernel, its plain and f32 counterparts, and greedy decoding with KV
+caches), and times each kernel beside its plain version, a library call
+and its bound.  Each path is driven with the launch counts set to 0 just
+before it and read just after.
 
 Phases: 1 environment and build; 2 kernels against their plain versions;
-3, 3b, 3c the paths; 4 kernel timings.  Any failed check exits non-zero.
+3, 3b, 3c the training paths; 4 kernel timings; 5 serving.  Any failed
+check exits non-zero.
 The card's ``nvidia-smi`` name and power limit stand on the line before
 the ``{"kernels": [...]}`` line, and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -41,6 +45,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 
 # the paths: OLMo-1B full width, 4 layers, R = 4, adamw
 BASE_ARGV = ["--arch", "olmo-1b", "--backend", "vmap", "--no-reduced",
@@ -65,7 +70,18 @@ LEAF_SHAPES = [(2048, 2048), (2048, 8192), (8192, 2048), EMBED_SHAPE]
 # (shape, bits): the reference's QSGD kernel-test cases, then the leaves
 QSGD_CASES = ([((n,), b) for n in (7, 1000, 1024, 4097) for b in (4, 8)]
               + [((33, 17), 8)] + [(s, BITS) for s in LEAF_SHAPES])
-KERNEL_NAMES = ("mean_and_sqdev", "sqnorm", "quantize", "dequantize")
+KERNEL_NAMES = ("mean_and_sqdev", "sqnorm", "quantize", "dequantize",
+                "flash_attention")
+# flash attention (B, S, H, K, d): the reference's kernel-test shapes; the
+# OLMo-1B prefill layer; GLM4-9B's GQA heads (configs/glm4_9b.py: H 32,
+# K 2, d 128); one layer of the reference's prefill_32k shape (timed only)
+FLASH_TEST_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 32),
+                     (1, 384, 6, 3, 128), (2, 128, 8, 1, 64)]
+OLMO_PREFILL = (4, 2048, 16, 16, 128)
+GLM4_GQA = (1, 4096, 32, 2, 128)
+PREFILL_32K = (1, 32768, 16, 16, 128)
+# serving: OLMo-1B, all 16 layers, 4 x 2048 prefill; generate 4 x (128 + 128)
+SERVE_BATCH, SERVE_SEQ, SERVE_PROMPT, SERVE_GEN = 4, 2048, 128, 128
 
 
 class CheckFailed(Exception):
@@ -86,10 +102,12 @@ def card_line() -> str:
 
 
 def kernel_fns():
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import param_variance as pv
     from repro_torch.kernels import qsgd_quant as qq
     return {"mean_and_sqdev": pv.mean_and_sqdev, "sqnorm": qq.sqnorm,
-            "quantize": qq.quantize, "dequantize": qq.dequantize}
+            "quantize": qq.quantize, "dequantize": qq.dequantize,
+            "flash_attention": fa.flash_attention}
 
 
 def reset_counts() -> None:
@@ -123,12 +141,13 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple:
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = F32_FLOPS_PER_S) -> tuple:
     """Least time on the card: the larger of bytes over its memory rate and
-    f32 operations over its f32 rate.  Returns (ms, "bytes" |
-    "operations")."""
+    operations over the peak rate for their type (f32 unless given).
+    Returns (ms, "bytes" | "operations")."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / F32_FLOPS_PER_S
+    t_ops = n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -148,6 +167,29 @@ def qsgd_bound(name: str, n: int) -> tuple:
     n_bytes, n_ops = {"sqnorm": (4, 2), "quantize": (9, 8),
                       "dequantize": (5, 1)}[name]
     return bound(n_bytes * n, n_ops * n)
+
+
+def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through, per (batch, head)."""
+    total = 0
+    for i in range(Sq):
+        lo = max(0, i - window + 1) if window else 0
+        hi = min(Sk - 1, i) if causal else Sk - 1
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_bound(shape, causal: bool = True, window: int = 0,
+                elt: int = 2) -> tuple:
+    """flash attention on (B, S, H, K, d): q, k, v read once and o written
+    once; 4·d FLOPs (two multiply-adds per element of q·k and p·v) for each
+    pair the mask lets through, at the bf16 tensor-core rate for bf16
+    inputs."""
+    B, S, H, K, d = shape
+    n_bytes = (2 * B * S * H * d + 2 * B * S * K * d) * elt
+    n_ops = 4 * d * B * H * attention_pairs(S, S, causal, window)
+    return bound(n_bytes, n_ops,
+                 BF16_FLOPS_PER_S if elt == 2 else F32_FLOPS_PER_S)
 
 
 # ------------------------------------------------------------------ phase 2
@@ -263,6 +305,79 @@ def phase_qsgd_kernels(device) -> dict:
     return errs
 
 
+def qkv(shape, dtype, gen, device):
+    import torch
+    B, S, H, K, d = shape
+    return tuple(torch.randn((B, S, n, d), generator=gen, device=device)
+                 .to(dtype) for n in (H, K, K))
+
+
+def phase_flash_kernels(device) -> dict:
+    """flash attention against its plain version (attention_ref) on the
+    card: the reference's kernel-test cases (4 shapes x f32/bf16 x window
+    0/64, causal, and the block-size case) at its tolerances, atol = rtol =
+    2e-5 in f32 and 2e-2 in bf16 (online against exact softmax; one bf16
+    rounding of the output); the OLMo-1B prefill layer, GLM4-9B's GQA heads
+    and causal=False in bf16.  Every call is run twice for a bitwise
+    repeat, adds 1 to the launch count each time, and a length the
+    reference refuses raises."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(s, dt, True, w, {}) for s in FLASH_TEST_SHAPES
+             for dt in (f32, bf16) for w in (0, 64)]
+    cases += [((1, 256, 4, 2, 64), f32, True, 0,
+               {"block_q": bq, "block_k": bk})
+              for bq, bk in ((64, 64), (128, 64), (64, 128))]
+    cases += [(OLMO_PREFILL, bf16, True, 0, {}), (GLM4_GQA, bf16, True, 0, {}),
+              ((2, 256, 4, 2, 32), f32, False, 0, {}),
+              ((2, 256, 4, 2, 32), bf16, False, 0, {}),
+              (OLMO_PREFILL, bf16, False, 0, {})]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    max_err = 0.0
+    for shape, dtype, causal, window, blocks in cases:
+        q, k, v = qkv(shape, dtype, gen, device)
+        before = fa.flash_attention.launches
+        out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                 **blocks)
+        again = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   **blocks)
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == f32 else 2e-2
+        err = float((out.float() - want.float()).abs().max())
+        excess = float(((out.float() - want.float()).abs()
+                        - tol * want.float().abs()).max())
+        repeat = torch.equal(out, again)
+        print(f"  flash {shape} {str(dtype)[6:]} causal={causal} "
+              f"window={window} {blocks or ''}: max_abs_err={err:.3e} "
+              f"(atol=rtol={tol}) bitwise_repeat={repeat}")
+        check(out.shape == q.shape and out.dtype == dtype,
+              f"flash output {tuple(out.shape)} {out.dtype} at {shape}")
+        check(excess <= tol, f"flash differs from plain by {err} at {shape}")
+        check(repeat, f"flash not bitwise repeatable at {shape}")
+        check(fa.flash_attention.launches == before + 2,
+              f"flash launch count moved by "
+              f"{fa.flash_attention.launches - before}, not 2")
+        max_err = max(max_err, err)
+        del q, k, v, out, again, want
+    for shape, err in (((1, 200, 2, 2, 64), "multiples"),
+                       ((1, 128, 2, 2, 48), "head dims")):
+        q, k, v = qkv(shape, bf16, gen, device)
+        try:
+            fa.flash_attention(q, k, v)
+            refused = False
+        except ValueError as e:
+            refused = err in str(e)
+        print(f"  flash {shape} refused with ValueError ({err}): {refused}")
+        check(refused, f"flash accepted {shape}")
+    release()
+    return {"max_abs_err": max_err}
+
+
 # ------------------------------------------------------------- phases 3-3c
 def drive(argv, callbacks=(), wrap=None) -> dict:
     """Build the engine through the training CLI's own setup, time each of
@@ -353,7 +468,7 @@ def phase_main_path() -> dict:
     print(f"  s_k_plain={[probe.plain.get(k) for k in hist.sync_steps]}")
     check(hist.n_syncs >= 4, f"only {hist.n_syncs} syncs")
     check(launches == dict(mean_and_sqdev=N_LEAVES * hist.n_syncs, sqnorm=0,
-                           quantize=0, dequantize=0),
+                           quantize=0, dequantize=0, flash_attention=0),
           f"launches {launches} != {N_LEAVES} x {hist.n_syncs} mean_sqdev")
     rels = [abs(s - probe.plain[k]) / abs(probe.plain[k])
             for k, s in zip(hist.sync_steps, hist.s_k)]
@@ -396,7 +511,7 @@ def phase_qsgd_periodic() -> dict:
     n = hist.n_syncs
     q = N_LEAVES * 4 * (n - 1)
     want = dict(mean_and_sqdev=N_LEAVES * n, sqnorm=q, quantize=q,
-                dequantize=q)
+                dequantize=q, flash_attention=0)
     check(n >= 4, f"only {n} syncs")
     check(out["launches"] == want, f"launches {out['launches']} != {want}")
     s_k_kernel = hist.s_k[-1]
@@ -458,7 +573,8 @@ def phase_qsgd() -> dict:
     engine, hist = out.pop("engine"), out.pop("hist")
     steps = len(hist.losses)
     q = steps * 4 * N_LEAVES
-    want = dict(mean_and_sqdev=0, sqnorm=q, quantize=q, dequantize=q)
+    want = dict(mean_and_sqdev=0, sqnorm=q, quantize=q, dequantize=q,
+                flash_attention=0)
     print(f"  max |W_r - W_0| after each step: {probe.max_diff}")
     check(steps == 8 and hist.n_syncs == 8, f"{steps} steps, "
           f"{hist.n_syncs} communication events")
@@ -573,12 +689,198 @@ def phase_qsgd_timing(W) -> dict:
     return out
 
 
+def phase_flash_timing() -> dict:
+    """flash attention at the OLMo-1B prefill layer, bf16, causal: the
+    kernel, its plain version and torch's scaled_dot_product_attention
+    (is_causal=True, a yardstick the port never calls) by CUDA events; and
+    at one prefill_32k layer the kernel and SDPA alone (the plain version's
+    f32 logits would take 68 GB)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    out = {}
+    for label, shape, iters in (("olmo_prefill", OLMO_PREFILL, 10),
+                                ("prefill_32k", PREFILL_32K, 2)):
+        q, k, v = qkv(shape, torch.bfloat16, gen, DEVICE)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row = {"ms": cuda_ms(lambda: fa.flash_attention(q, k, v), iters),
+               "plain_ms": (cuda_ms(lambda: attention_ref(q, k, v), 3)
+                            if label == "olmo_prefill" else None),
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True), iters)}
+        row["bound_ms"], row["bound_by"] = flash_bound(shape)
+        out[label] = row
+        print(f"  timing flash_attention {label} {shape} bf16 causal: "
+              + " ".join(f"{k}={v}" for k, v in row.items()))
+        del q, k, v, qt, kt, vt
+        release()
+    return out
+
+
+# ------------------------------------------------------------------ phase 5
+def serve_config():
+    """OLMo-1B as published: all 16 layers, d_model 2048, vocab 50304."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("olmo-1b").model,
+                               max_seq_len=SERVE_SEQ)
+
+
+def phase_serving() -> dict:
+    """OLMo-1B at its published width and all 16 layers, parameters from
+    init_params(0) on the card, through the server's entry points.
+
+    (a) make_prefill_step on 4 x 2048 tokens three ways: use_flash (16
+        flash launches, no other kernel), the plain route (0 launches) and
+        the plain route in f32 compute, the yardstick.  The flash route's
+        max |d| of last-position logits from the yardstick must be at most
+        1.25x the plain bf16 route's (they differ only in how the
+        attention's f32 result is reached before its bf16 rounding).
+    (b) generate, 4 x (128 prompt + 128 generated) tokens, f32 caches,
+        use_flash set: every token in the vocabulary, 0 flash launches
+        (decode is S = 1 against the cache).
+    (c) decode_step's logits at the last prompt token against the plain
+        bf16 prefill of the prompt: max |d| at most twice the bf16
+        prefill's own distance from the f32 prefill (decode runs in f32
+        after layer 0, since the caches are f32, so it lies about as far
+        from the bf16 prefill as the f32 prefill does)."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = serve_config()
+    flash_cfg = dataclasses.replace(cfg, use_flash=True)
+    f32_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    params = M.init_params(0, cfg, device=DEVICE)
+    n_params = M.param_count(params)
+    print(f"  model {cfg.name}: d_model={cfg.d_model} n_layers={cfg.n_layers}"
+          f" heads={cfg.n_heads}/{cfg.n_kv_heads} vocab={cfg.vocab_size} "
+          f"params={n_params}")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_SEQ),
+                           generator=gen, device=DEVICE, dtype=torch.int32)
+    batch = {"tokens": tokens}
+
+    def prefill(c, b, reps=3):
+        """(last logits, launches of the first call, median ms of reps)."""
+        step = make_prefill_step(c)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            reset_counts()
+            last = step(params, b)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                step(params, b)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        return (last.float(), launches,
+                statistics.median(times) if times else None)
+
+    flash, l_flash, ms_flash = prefill(flash_cfg, batch)
+    plain, l_plain, ms_plain = prefill(cfg, batch)
+    ref, _, ms_f32 = prefill(f32_cfg, batch, reps=1)
+    d_flash = float((flash - ref).abs().max())
+    d_plain = float((plain - ref).abs().max())
+    top = [t.argmax(-1) for t in (flash, plain, ref)]
+    agree = {"flash_plain": int((top[0] == top[1]).sum()),
+             "flash_f32": int((top[0] == top[2]).sum()),
+             "plain_f32": int((top[1] == top[2]).sum())}
+    none = dict.fromkeys(KERNEL_NAMES, 0)
+    print(f"  (a) prefill {SERVE_BATCH}x{SERVE_SEQ}: flash {ms_flash:.3f} ms "
+          f"launches={l_flash}; plain {ms_plain:.3f} ms launches={l_plain}; "
+          f"f32 {ms_f32:.3f} ms")
+    print(f"  (a) max |last logits - f32|: flash={d_flash!r} "
+          f"plain={d_plain!r} ratio={d_flash / d_plain!r} (limit 1.25); "
+          f"max |f32 logits|={float(ref.abs().max())!r}; greedy next token "
+          f"agrees of {SERVE_BATCH}: {agree}")
+    check(flash.shape == (SERVE_BATCH, cfg.vocab_size), "prefill shape")
+    check(all(bool(torch.isfinite(t).all()) for t in (flash, plain, ref)),
+          "non-finite prefill logits")
+    check(l_flash == dict(none, flash_attention=cfg.n_layers),
+          f"flash prefill launches {l_flash}")
+    check(l_plain == none, f"plain prefill launches {l_plain}")
+    check(d_flash <= 1.25 * d_plain,
+          f"flash route {d_flash} from f32 > 1.25 x plain {d_plain}")
+    del flash, plain, ref
+    release()
+
+    prompt = tokens[:, :SERVE_PROMPT].contiguous()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = serve.generate(flash_cfg, params, prompt, SERVE_GEN)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    l_gen = read_counts()
+    steps = SERVE_PROMPT + SERVE_GEN - 1
+    new = out[:, SERVE_PROMPT:]
+    print(f"  (b) generate {SERVE_BATCH}x({SERVE_PROMPT}+{SERVE_GEN}): "
+          f"{gen_s:.3f} s, {gen_s / steps * 1e3:.3f} ms per decode step, "
+          f"{SERVE_BATCH * SERVE_GEN / gen_s:.1f} generated tokens/s, "
+          f"{SERVE_BATCH * steps / gen_s:.1f} tokens/s through the decoder; "
+          f"launches={l_gen}")
+    for r in range(SERVE_BATCH):
+        print(f"  (b) row {r} generated: {new[r].tolist()}")
+    check(out.shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN),
+          f"generate shape {tuple(out.shape)}")
+    check(torch.equal(out[:, :SERVE_PROMPT], prompt), "prompt not kept")
+    check(int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size,
+          "a generated token lies outside the vocabulary")
+    check(l_gen == none, f"decode launches {l_gen}")
+
+    with torch.inference_mode():
+        caches = M.init_caches(cfg, SERVE_BATCH, SERVE_PROMPT,
+                               dtype=torch.float32, device=DEVICE)
+        for t in range(SERVE_PROMPT):
+            logits, caches = M.decode_step(
+                params, {"tokens": prompt[:, t:t + 1]}, caches, cfg)
+        dec = logits[:, 0].float()
+        del caches
+    pre, _, _ = prefill(cfg, {"tokens": prompt}, reps=0)
+    pre32, _, _ = prefill(f32_cfg, {"tokens": prompt}, reps=0)
+    d_dec = float((dec - pre).abs().max())
+    d_bf16 = float((pre - pre32).abs().max())
+    same = int((dec.argmax(-1) == pre.argmax(-1)).sum())
+    print(f"  (c) decode vs plain prefill at the last prompt token: max |d|="
+          f"{d_dec!r} (limit 2 x {d_bf16!r}, the bf16 prefill's distance "
+          f"from f32); decode vs f32 prefill {float((dec - pre32).abs().max())!r}"
+          f"; greedy tokens agree {same} of {SERVE_BATCH}")
+    check(bool(torch.isfinite(dec).all()), "non-finite decode logits")
+    check(d_dec <= 2 * d_bf16, f"decode {d_dec} from prefill > 2 x {d_bf16}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB)")
+    del params
+    release()
+    return {"launches": {k: l_flash[k] + l_plain[k] + l_gen[k]
+                         for k in KERNEL_NAMES},
+            "prefill_ms": {"flash": ms_flash, "plain": ms_plain,
+                           "f32": ms_f32},
+            "decode_ms_per_step": gen_s / steps * 1e3,
+            "generated_tokens_per_s": SERVE_BATCH * SERVE_GEN / gen_s,
+            "peak_bytes": peak, "d_flash": d_flash, "d_plain": d_plain,
+            "d_decode": d_dec}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import param_variance as pv
     from repro_torch.kernels import qsgd_quant as qq
 
@@ -589,8 +891,9 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    reports = build.build(pv.SOURCE, qq.SOURCE)
-    print(f"  built {[build.library_path(s).name for s in (pv.SOURCE, qq.SOURCE)]}"
+    sources = (pv.SOURCE, qq.SOURCE, fa.SOURCE)
+    reports = build.build(*sources)
+    print(f"  built {[build.library_path(s).name for s in sources]}"
           f" in {time.perf_counter() - t0:.2f} s (in parallel)")
     for name, report in reports.items():
         for line in report.splitlines():
@@ -603,6 +906,7 @@ def main() -> int:
     print("phase 2: kernels against their plain versions")
     errs = phase_kernels(device)
     qerrs = phase_qsgd_kernels(device)
+    ferrs = phase_flash_kernels(device)
 
     print("phase 3: ADPSGD, OLMo-1B full width, 4 layers, R=4")
     main_path = phase_main_path()
@@ -619,8 +923,13 @@ def main() -> int:
     qtiming = phase_qsgd_timing(W)
     del W
     release()
+    ftiming = phase_flash_timing()
 
-    paths = {"adpsgd": main_path, "qsgd_periodic": qp, "qsgd": qs}
+    print("phase 5: serving, OLMo-1B full width, 16 layers")
+    serving = phase_serving()
+
+    paths = {"adpsgd": main_path, "qsgd_periodic": qp, "qsgd": qs,
+             "serving": serving}
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in KERNEL_NAMES}
     print("launches by path: " + json.dumps(
@@ -646,13 +955,26 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    row = ftiming["olmo_prefill"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:85",
+        "launches": launches["flash_attention"],
+        "max_abs_err": ferrs["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"]})
     print("summary: " + json.dumps({
         name: {k: p[k] for k in ("ms", "peak_bytes", "n_syncs")}
-        for name, p in paths.items()}))
+        for name, p in paths.items() if name != "serving"}))
     print(f"summary: mean_and_sqdev embed={timing['embed']} "
           f"uniform_ms_per_exchange={qtiming['uniform_ms']} "
           f"qsgd_periodic last-sync s_k_rel={qp['s_k_rel']} "
           f"level_flips={qp['level_flips']}")
+    print("summary: serving " + json.dumps(
+        {k: v for k, v in serving.items() if k != "launches"})
+          + f" flash prefill_32k={ftiming['prefill_32k']}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@ these, never a kernel module directly.  Each wrapper launches its CUDA
 kernel for a CUDA tensor and uses the plain version for a CPU tensor."""
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import param_variance as _pv
 from repro_torch.kernels import qsgd_quant as _qq
 
@@ -21,3 +22,9 @@ def qsgd_quantize(x, u, norm, bits: int = 8):
 
 def qsgd_dequantize(levels, norm, bits: int = 8):
     return _qq.dequantize(levels, norm, bits)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    block_q: int = 128, block_k: int = 128):
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               block_q=block_q, block_k=block_k)

@@ -2,9 +2,34 @@
 wrapper, and what ``chip_smoke.py`` holds each CUDA kernel against)."""
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B,Sq,H,d); k, v: (B,Sk,K,d), H % K == 0.  Exact softmax
+    attention: f32 logits scaled by 1/√d, −1e30 where the mask fails
+    (positions aligned at the top left: key j <= query i if ``causal``,
+    j > i − window if ``window``), softmax, output in q's dtype."""
+    B, Sq, H, d = q.shape
+    _, Sk, K, _ = k.shape
+    qh = q.reshape(B, Sq, K, H // K, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qh.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(d)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    s = torch.where(mask, s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, v.to(torch.float32))
+    return o.reshape(B, Sq, H, d).to(q.dtype)
 
 
 def mean_and_sqdev_ref(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

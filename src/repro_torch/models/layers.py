@@ -5,19 +5,22 @@ Functional, as the reference: ``init_*`` builds a parameter tree (nested
 dicts of tensors), ``*_forward`` consumes it.  The weight layout is the
 reference's — dense ``w`` is ``(d_in, d_out)`` and the product is
 ``x @ w`` — so reference parameters copy across with no transposes.
-Attention is the full-sequence, cache-free path and the MLP is SwiGLU; the
-flash-attention kernel, MLA, M-RoPE, MoE and the gelu MLP come with later
+Attention is GQA, over the full sequence (the flash-attention kernel when
+``cfg.use_flash`` asks for it) or one token against a KV cache; the MLP is
+SwiGLU.  MLA, M-RoPE, cross attention, MoE and the gelu MLP come with later
 parts of the port.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops as kops
 
 Params = Dict[str, Any]
 
@@ -103,7 +106,7 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, full sequence)
+# Attention (GQA) with optional KV cache
 # ---------------------------------------------------------------------------
 
 
@@ -116,6 +119,20 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "wk": dense_init(gen, D, K * dh, dtype=dt, bias=b),
         "wv": dense_init(gen, D, K * dh, dtype=dt, bias=b),
         "wo": dense_init(gen, H * dh, D, dtype=dt),
+    }
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, *, device: DeviceLike = None) -> Params:
+    """Fixed-size ring buffer.  For SWA the buffer is only ``window`` long.
+    Slots not written yet hold position −1, which the mask refuses."""
+    device = resolve_device(device)
+    buf = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    K, dh = cfg.n_kv_heads, cfg.head_dim()
+    return {
+        "k": torch.zeros(batch, buf, K, dh, dtype=dtype, device=device),
+        "v": torch.zeros(batch, buf, K, dh, dtype=dtype, device=device),
+        "pos": torch.full((batch, buf), -1, dtype=torch.int32, device=device),
     }
 
 
@@ -147,22 +164,52 @@ def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 
 def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                      positions: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention over the full sequence x (B,S,D)."""
+                      positions: torch.Tensor,
+                      cache: Optional[Params] = None,
+                      cache_index: Optional[torch.Tensor] = None,
+                      ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Returns (output, updated cache).
+
+    * full sequence: cache=None — causal attention over x (B,S,D), through
+      the flash-attention kernel when ``cfg.use_flash`` is set, there is no
+      sliding window and S > 1, as in the reference.
+    * decode: cache given, x is (B,1,D), cache_index (an int32 scalar
+      tensor) picks the write slot.  The cache's buffers are updated in
+      place (the reference returns new buffers; the port saves their
+      copies) and the cache is returned.
+    """
     B, S, _ = x.shape
     H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
-    if cfg.use_flash and cfg.sliding_window == 0 and S > 1:
-        raise NotImplementedError(
-            "use_flash: the flash-attention kernel is not ported yet")
     q = dense(p["wq"], x).reshape(B, S, H, dh)
     k = dense(p["wk"], x).reshape(B, S, Kh, dh)
     v = dense(p["wv"], x).reshape(B, S, Kh, dh)
     if cfg.pos_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)
-    mask = _causal_mask(positions, positions, cfg.sliding_window)
-    out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap)
-    return dense(p["wo"], out.reshape(B, S, H * dh))
+
+    if cache is None:
+        if cfg.use_flash and cfg.sliding_window == 0 and S > 1:
+            out = kops.flash_attention(q, k, v, causal=True)
+        else:
+            mask = _causal_mask(positions, positions, cfg.sliding_window)
+            out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap)
+        return dense(p["wo"], out.reshape(B, S, H * dh)), None
+
+    # --- cached decode (S == 1) ---
+    slot = cache_index % cache["k"].shape[1]
+    for name, rows in (("k", k), ("v", v), ("pos", positions)):
+        _scatter_rows(cache[name], rows, slot)
+    mask = _causal_mask(positions, cache["pos"], cfg.sliding_window)
+    out = _sdpa(q, cache["k"], cache["v"], mask, cfg.attn_logit_softcap)
+    return dense(p["wo"], out.reshape(B, S, H * dh)), cache
+
+
+def _scatter_rows(buf: torch.Tensor, x: torch.Tensor,
+                  slot: torch.Tensor) -> None:
+    """Write x (B,1,...) into buf (B,S,...) at the slot (a scalar tensor,
+    the same for every batch row), in place, in buf's dtype.  Stands for
+    the reference's ``_scatter_rows`` and ``_scatter_pos`` alike."""
+    buf.index_copy_(1, slot.reshape(1).long(), x.to(buf.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
-"""Model API: init, full-sequence forward and the LM loss (port of the
-training part of ``repro/models/model.py`` for dense decoder-only LMs).
+"""Model API: init, full-sequence forward (train / prefill), single-token
+decode against caches, and the LM loss (port of ``repro/models/model.py``
+for dense decoder-only LMs).
 
 A batch is a dict with ``tokens`` (B,S) int and optionally ``positions``
-(B,S) and ``loss_mask`` (B,S-1).  The reference's ``lax.scan`` over layers
-and its rematerialisation are compile and memory devices, not numerics;
-here the layers run in a plain Python loop.
+(B,S) and ``loss_mask`` (B,S-1); for decode steps it carries a single
+token column (B,1).  The reference's ``lax.scan`` over layers and its
+rematerialisation are compile and memory devices, not numerics; here the
+layers run in a plain Python loop.
 """
 from __future__ import annotations
 
@@ -62,6 +64,20 @@ def init_params(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
     return p
 
 
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, *, device: DeviceLike = None) -> Params:
+    """One KV cache per layer and the decode index (an int32 scalar tensor
+    on the caches' device)."""
+    _check_ported(cfg)
+    device = resolve_device(device)
+    return {
+        "layers": [T.init_block_cache(cfg, i, batch, max_len, dtype,
+                                      device=device)
+                   for i in range(cfg.n_layers)],
+        "index": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
 def param_count(params: Params) -> int:
     return sum(x.numel() for x in tree_leaves(params))
 
@@ -79,7 +95,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         pos = torch.arange(S, dtype=torch.int32,
                            device=tokens.device).expand(B, S)
     for i, blk in enumerate(params["blocks"]):
-        x = T.block_forward(blk, x, cfg, i, positions=pos)
+        x, _ = T.block_forward(blk, x, cfg, i, positions=pos)
     x = L.norm_forward(params["final_norm"], x, cfg)
     return _lm_head(params, x, cfg), {}
 
@@ -91,6 +107,31 @@ def _lm_head(params, x, cfg):
         col = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(col < cfg.vocab_size, logits, -1e30)
     return logits
+
+
+def decode_step(params: Params, batch: Dict[str, torch.Tensor],
+                caches: Params, cfg: ModelConfig,
+                ) -> Tuple[torch.Tensor, Params]:
+    """One-token decode.  batch["tokens"]: (B,1).  Returns (logits (B,1,V),
+    updated caches); the layers' buffers are updated in place."""
+    _check_ported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if S != 1:
+        raise ValueError(f"decode_step takes one token per row, got {S}")
+    idx = caches["index"]
+    cdt = L.dtype_of(cfg.compute_dtype)
+    x = params["embed"][tokens].to(cdt) * cfg.emb_scale
+    pos = batch.get("positions")
+    if pos is None:
+        pos = idx.to(torch.int32).reshape(1, 1).expand(B, 1)
+    new_layers = []
+    for i, blk in enumerate(params["blocks"]):
+        x, nc = T.block_forward(blk, x, cfg, i, positions=pos,
+                                cache=caches["layers"][i], cache_index=idx)
+        new_layers.append(nc)
+    x = L.norm_forward(params["final_norm"], x, cfg)
+    return _lm_head(params, x, cfg), {"layers": new_layers, "index": idx + 1}
 
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

@@ -1,22 +1,27 @@
 """Block composition (port of the attention-block part of
-``repro/models/transformer.py``): pre-norm attention + MLP sublayers."""
+``repro/models/transformer.py``): pre-norm attention + MLP sublayers, over
+the full sequence or one token against the block's KV cache."""
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int) -> Params:
-    kind = cfg.block_kind(layer_idx)
-    if kind != "attn" or cfg.layer_uses_moe(layer_idx):
+def _check_attention_block(cfg: ModelConfig, layer_idx: int) -> None:
+    if cfg.block_kind(layer_idx) != "attn" or cfg.layer_uses_moe(layer_idx):
         raise NotImplementedError(
             f"layer {layer_idx}: only dense attention blocks are ported")
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int) -> Params:
+    _check_attention_block(cfg, layer_idx)
     p: Params = {"norm1": L.init_norm(gen, cfg, cfg.d_model),
                  "attn": L.init_attention(gen, cfg)}
     if cfg.d_ff > 0:
@@ -25,12 +30,24 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int) -> Params
     return p
 
 
+def init_block_cache(cfg: ModelConfig, layer_idx: int, batch: int,
+                     max_len: int, dtype=torch.bfloat16, *,
+                     device: DeviceLike = None) -> Params:
+    _check_attention_block(cfg, layer_idx)
+    return L.init_kv_cache(cfg, batch, max_len, dtype, device=device)
+
+
 def block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
-                  *, positions: torch.Tensor) -> torch.Tensor:
+                  *, positions: torch.Tensor,
+                  cache: Optional[Params] = None,
+                  cache_index: Optional[torch.Tensor] = None,
+                  ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Returns (x, the block's updated cache — None without a cache)."""
     h = L.norm_forward(p["norm1"], x, cfg)
-    h = L.attention_forward(p["attn"], h, cfg, positions=positions)
+    h, new_cache = L.attention_forward(p["attn"], h, cfg, positions=positions,
+                                       cache=cache, cache_index=cache_index)
     x = x + h * cfg.residual_scale
     if "norm2" in p:
         h = L.norm_forward(p["norm2"], x, cfg)
         x = x + L.mlp_forward(p["mlp"], h, cfg) * cfg.residual_scale
-    return x
+    return x, new_cache

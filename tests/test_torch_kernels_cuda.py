@@ -1,5 +1,5 @@
 """The CUDA kernels (mean_and_sqdev; QSGD's sqnorm, quantize and
-dequantize) against their plain versions, on the card.
+dequantize; flash attention) against their plain versions, on the card.
 
 Imports neither jax nor the reference, so it runs where the port runs:
 
@@ -9,12 +9,15 @@ Imports neither jax nor the reference, so it runs where the port runs:
 Without a CUDA device every case skips (the kernels have no CPU mode).
 Tolerances: mean atol 1e-6, sq and sqnorm rtol 1e-5 (f32 sums in another
 order); levels and dequantized values bit-identical given the same norm
-and uniforms."""
+and uniforms; flash attention atol = rtol = 2e-5 in f32 and 2e-2 in bf16,
+the tolerances of the reference's kernel test (online against exact
+softmax; one bf16 rounding of the output)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import prng
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import qsgd_quant
 from repro_torch.kernels import ref as torch_ref
 from repro_torch.kernels.param_variance import mean_and_sqdev
@@ -142,3 +145,42 @@ def test_quantized_sync_uses_kernels_on_cuda(cuda):
     assert abs(float(sk) - float(sp)) <= 1e-5 * abs(float(sp))
     torch.testing.assert_close(Wk["a"], Wp["a"], rtol=1e-6, atol=1e-6)
     assert torch.equal(Wk["a"], Wk["a"][:1].expand_as(Wk["a"]))
+
+
+FLASH_CASES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 32), (1, 384, 6, 3, 128),
+               (2, 128, 8, 1, 64), (1, 100, 4, 2, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,d", FLASH_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0)])
+def test_flash_attention_matches_plain(cuda, B, S, H, K, d, dtype, tol,
+                                       causal, window):
+    rng = np.random.RandomState(S * H + window)
+    q, k, v = (torch.from_numpy(rng.randn(B, S, n, d).astype(np.float32))
+               .to(cuda, dtype) for n in (H, K, K))
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    want = torch_ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype and out.shape == (B, S, H, d)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_on_the_card(cuda):
+    q = torch.zeros(1, 200, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="multiples"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 128, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 128, 2, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fa.flash_attention(q, q, q)
