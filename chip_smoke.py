@@ -11,8 +11,10 @@ published width, cut to 4 layers, R = 4 replicas, adamw:
 
 * 3  ADPSGD, 16 steps (the fused mean + sqdev kernel in every sync);
 * 3b qsgd_periodic, 16 steps (QSGD-quantized deltas on ADPSGD's schedule:
-     sqnorm, quantize, dequantize and mean + sqdev in every quantized sync);
-* 3c qsgd, 8 steps (quantized gradients every step);
+     sqnorm once per leaf over its 4 deltas, quantize, dequantize and mean
+     + sqdev in every quantized sync);
+* 3c qsgd, 8 steps (quantized gradients every step; sqnorm once per
+     replica over its 29 leaves);
 
 then serves OLMo-1B at its published width and all 16 layers through the
 server's entry points (phase 5: a prefill step with the flash-attention
@@ -21,9 +23,9 @@ caches), and times each kernel beside its plain version, a library call
 and its bound.  Each path is driven with the launch counts set to 0 just
 before it and read just after.
 
-Phases: 1 environment and build; 2 kernels against their plain versions;
-3, 3b, 3c the training paths; 4 kernel timings; 5 serving.  Any failed
-check exits non-zero.
+Phases: 1 environment and build (no kernel may spill registers); 2
+kernels against their plain versions; 3, 3b, 3c the training paths; 4
+kernel timings; 5 serving.  Any failed check exits non-zero.
 The card's ``nvidia-smi`` name and power limit stand on the line before
 the ``{"kernels": [...]}`` line, and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -34,6 +36,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -72,9 +75,10 @@ QSGD_CASES = ([((n,), b) for n in (7, 1000, 1024, 4097) for b in (4, 8)]
               + [((33, 17), 8)] + [(s, BITS) for s in LEAF_SHAPES])
 KERNEL_NAMES = ("mean_and_sqdev", "sqnorm", "quantize", "dequantize",
                 "flash_attention")
-# flash attention (B, S, H, K, d): the reference's kernel-test shapes; the
-# OLMo-1B prefill layer; GLM4-9B's GQA heads (configs/glm4_9b.py: H 32,
-# K 2, d 128); one layer of the reference's prefill_32k shape (timed only)
+# flash attention (B, S, H, K, d), or (B, Sq, Sk, H, K, d): the reference's
+# kernel-test shapes; the OLMo-1B prefill layer; GLM4-9B's GQA heads
+# (configs/glm4_9b.py: H 32, K 2, d 128); one layer of the reference's
+# prefill_32k shape (timed only)
 FLASH_TEST_SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 32),
                      (1, 384, 6, 3, 128), (2, 128, 8, 1, 64)]
 OLMO_PREFILL = (4, 2048, 16, 16, 128)
@@ -290,6 +294,7 @@ def phase_qsgd_kernels(device) -> dict:
     print(f"  qsgd saturation (|x|/norm·s just above s, u = 0): "
           f"levels={lv.tolist()}")
     check(lv.tolist()[:2] == [127, -128], f"saturation gave {lv.tolist()}")
+    errs["sqnorm"] = max(errs["sqnorm"], phase_sqnorm_many(device))
     key = prng.split(prng.fold_in(prng.prng_key(17), 3), N_LEAVES)[0]
     t0 = time.perf_counter()
     on_card = prng.uniform(key, EMBED_SHAPE, device=device).cpu()
@@ -305,29 +310,98 @@ def phase_qsgd_kernels(device) -> dict:
     return errs
 
 
+def phase_sqnorm_many(device) -> float:
+    """sqnorm_many against its plain version on the card: one tensor of 1,
+    7, 4097 and 103,022,592 (the embedding) elements, and the 29 leaves of
+    one replica of the training paths' model in one group.  Each sum within
+    rtol 1e-5 (1e-4 on the embedding, as sqnorm's), bitwise repeatable,
+    bit-identical to sqnorm of the tensor alone; one launch per call.
+    Returns the largest absolute error."""
+    import torch
+    from repro_torch.kernels import qsgd_quant as qq
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    leaves = ([EMBED_SHAPE] + [LEAF_SHAPES[0]] * 16 + [LEAF_SHAPES[1]] * 8
+              + [LEAF_SHAPES[2]] * 4)
+    groups = [[(1,)], [(7,)], [(4097,)], [EMBED_SHAPE], leaves]
+    max_abs = 0.0
+    for shapes in groups:
+        xs = [torch.randn(s, generator=gen, device=device) * 3.0
+              for s in shapes]
+        before = qq.sqnorm.launches
+        sq, sq2 = qq.sqnorm_many(xs), qq.sqnorm_many(xs)
+        launches = qq.sqnorm.launches - before
+        alone = torch.stack([qq.sqnorm(x) for x in xs])
+        want = ref.sqnorm_many_ref(xs)
+        torch.cuda.synchronize()
+        tol = torch.tensor([1e-4 if tuple(s) == EMBED_SHAPE else 1e-5
+                            for s in shapes], device=device)
+        rel = (sq - want).abs() / want
+        print(f"  sqnorm_many {len(xs)} tensors "
+              f"({sum(x.numel() for x in xs)} elements): max rel "
+              f"{float(rel.max()):.3e} repeat={torch.equal(sq, sq2)} "
+              f"equal_to_alone={torch.equal(sq, alone)} launches={launches}")
+        check(bool((rel <= tol).all()), f"sqnorm_many rel error "
+              f"{float(rel.max())} over {len(xs)} tensors")
+        check(torch.equal(sq, sq2), "sqnorm_many not repeatable")
+        check(torch.equal(sq, alone),
+              "sqnorm_many differs from sqnorm of the tensor alone")
+        check(launches == 2, f"two sqnorm_many calls made {launches} launches")
+        max_abs = max(max_abs, float((sq - want).abs().max()))
+        del xs, sq, sq2, alone, want
+    release()
+    return max_abs
+
+
 def qkv(shape, dtype, gen, device):
     import torch
-    B, S, H, K, d = shape
+    B, Sq, Sk, H, K, d = shape if len(shape) == 6 else (shape[:2] + shape[1:])
     return tuple(torch.randn((B, S, n, d), generator=gen, device=device)
-                 .to(dtype) for n in (H, K, K))
+                 .to(dtype) for S, n in ((Sq, H), (Sk, K), (Sk, K)))
+
+
+def flash_cases_per_instance():
+    """Cases for every bf16 instance (the SIMT one at d = 32, the wgmma
+    one at 64 and 128): one 128 x 128 tile, non-causal and causal; then
+    several 128-row tiles (S = 640), S = 100, Sq != Sk (and a ragged Sk),
+    GLM4's 16:1 GQA, each causal, with windows 64 and 200, and
+    non-causal."""
+    import torch
+    bf16 = torch.bfloat16
+    cases = []
+    for d in (128, 64, 32):
+        cases += [((1, 128, 128, 1, 1, d), bf16, c, 0, {})
+                  for c in (False, True)]
+        cases += [(shape, bf16, c, w, {})
+                  for shape in ((1, 640, 640, 4, 2, d), (1, 100, 100, 4, 2, d),
+                                (1, 128, 384, 4, 2, d), (1, 256, 100, 4, 2, d),
+                                (1, 256, 256, 32, 2, d))
+                  for c, w in ((True, 0), (True, 64), (True, 200),
+                               (False, 0))]
+    return cases
 
 
 def phase_flash_kernels(device) -> dict:
     """flash attention against its plain version (attention_ref) on the
-    card: the reference's kernel-test cases (4 shapes x f32/bf16 x window
-    0/64, causal, and the block-size case) at its tolerances, atol = rtol =
-    2e-5 in f32 and 2e-2 in bf16 (online against exact softmax; one bf16
-    rounding of the output); the OLMo-1B prefill layer, GLM4-9B's GQA heads
-    and causal=False in bf16.  Every call is run twice for a bitwise
-    repeat, adds 1 to the launch count each time, and a length the
-    reference refuses raises."""
+    card: first the cases of every bf16 instance (a single 128 x 128 tile
+    before anything larger), then the reference's kernel-test cases (4
+    shapes x f32/bf16 x window 0/64, causal, and the block-size case) at
+    its tolerances, atol = rtol = 2e-5 in f32 and 2e-2 in bf16 (online
+    against exact softmax; one bf16 rounding of the output, and of P in
+    the wgmma instance); the OLMo-1B prefill layer, GLM4-9B's GQA heads and
+    causal=False in bf16.  Every call is run twice for a bitwise repeat,
+    adds 1 to the launch count each time, and a length the reference
+    refuses raises."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import attention_ref
 
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(s, dt, True, w, {}) for s in FLASH_TEST_SHAPES
-             for dt in (f32, bf16) for w in (0, 64)]
+    cases = flash_cases_per_instance()
+    cases += [(s, dt, True, w, {}) for s in FLASH_TEST_SHAPES
+              for dt in (f32, bf16) for w in (0, 64)]
     cases += [((1, 256, 4, 2, 64), f32, True, 0,
                {"block_q": bq, "block_k": bk})
               for bq, bk in ((64, 64), (128, 64), (64, 128))]
@@ -480,11 +554,11 @@ def phase_main_path() -> dict:
 
 def phase_qsgd_periodic() -> dict:
     """qsgd_periodic: the seeding sync costs 29 mean_and_sqdev launches,
-    each later sync 29 x 4 of sqnorm, quantize and dequantize plus 29 of
-    mean_and_sqdev.  At the last sync the kernel route's S_k is held
-    against the plain route's on the same W, anchor and key (rtol 1e-4:
-    the norms differ by rounding, which can flip a level where u is
-    within an ulp of its fraction)."""
+    each later sync 29 of sqnorm (one per leaf, over its 4 deltas), 29 x 4
+    of quantize and dequantize, and 29 of mean_and_sqdev.  At the last
+    sync the kernel route's S_k is held against the plain route's on the
+    same W, anchor and key (rtol 1e-4: the norms differ by rounding, which
+    can flip a level where u is within an ulp of its fraction)."""
     import torch
     from repro_torch.backends import VmapBackend
     from repro_torch.core import qsgd as Q
@@ -510,8 +584,8 @@ def phase_qsgd_periodic() -> dict:
     engine, hist = out.pop("engine"), out.pop("hist")
     n = hist.n_syncs
     q = N_LEAVES * 4 * (n - 1)
-    want = dict(mean_and_sqdev=N_LEAVES * n, sqnorm=q, quantize=q,
-                dequantize=q, flash_attention=0)
+    want = dict(mean_and_sqdev=N_LEAVES * n, sqnorm=N_LEAVES * (n - 1),
+                quantize=q, dequantize=q, flash_attention=0)
     check(n >= 4, f"only {n} syncs")
     check(out["launches"] == want, f"launches {out['launches']} != {want}")
     s_k_kernel = hist.s_k[-1]
@@ -554,8 +628,9 @@ def phase_qsgd_periodic() -> dict:
 
 def phase_qsgd() -> dict:
     """qsgd: 8 steps; the replicas stay bit-identical after every step
-    (max |W_r - W_0| = 0 on every leaf); launches = 8 x 4 x 29 of each
-    QSGD kernel."""
+    (max |W_r - W_0| = 0 on every leaf); launches = 8 x 4 x 29 of quantize
+    and dequantize, and 8 x 4 of sqnorm (one per replica, over its 29
+    leaves)."""
     import torch
     from repro_torch.runtime.engine import Callback
     from repro_torch.tree import tree_leaves
@@ -573,8 +648,8 @@ def phase_qsgd() -> dict:
     engine, hist = out.pop("engine"), out.pop("hist")
     steps = len(hist.losses)
     q = steps * 4 * N_LEAVES
-    want = dict(mean_and_sqdev=0, sqnorm=q, quantize=q, dequantize=q,
-                flash_attention=0)
+    want = dict(mean_and_sqdev=0, sqnorm=steps * 4, quantize=q,
+                dequantize=q, flash_attention=0)
     print(f"  max |W_r - W_0| after each step: {probe.max_diff}")
     check(steps == 8 and hist.n_syncs == 8, f"{steps} steps, "
           f"{hist.n_syncs} communication events")
@@ -622,7 +697,12 @@ def phase_qsgd_timing(W) -> dict:
     of the flat view with itself; ``torch.mul(levels, norm / s)``; none
     for quantize), on one replica of the embedding leaf and over one whole
     exchange (29 leaves x 4 replicas); and the uniform generator's time
-    per exchange, under the exchange's own keys."""
+    per exchange, under the exchange's own keys.  sqnorm over an exchange
+    is timed as the paths call it: grouped by leaf (qsgd_periodic, 29
+    calls of 4, the kernels line's number) and by replica (qsgd, 4 calls of
+    29), beside one call per tensor, ``torch.dot`` per tensor and
+    ``torch._foreach_norm`` over the same groups (norms, not squares: a
+    yardstick)."""
     import torch
     from repro_torch.core import prng
     from repro_torch.kernels import qsgd_quant as qq
@@ -661,13 +741,24 @@ def phase_qsgd_timing(W) -> dict:
         print(f"  timing per call, one {shape} tensor: " + " ".join(
             f"{name}={cuda_ms(lambda: fns[name][0](*it), 20):.4f}ms"
             f"(bound {qsgd_bound(name, n_el)[0]:.4f})" for name in fns))
+    by_leaf = [[x for x, *_ in items[i * R:(i + 1) * R]]
+               for i in range(len(leaves))]
+    by_replica = [[items[i * R + r][0] for i in range(len(leaves))]
+                  for r in range(R)]
+    grouped = {
+        "by_leaf": lambda: [qq.sqnorm_many(g) for g in by_leaf],
+        "by_replica": lambda: [qq.sqnorm_many(g) for g in by_replica],
+    }
     for label, group, iters in (("embed", [embed], 20),
                                 ("exchange", items, 5)):
         n_el = sum(it[0].numel() for it in group)
         for name, (kernel, plain, library) in fns.items():
             def over(fn, group=group):
                 return lambda: [fn(*it) for it in group]
-            row = {"ms": cuda_ms(over(kernel), iters),
+            kernel_ms = (cuda_ms(grouped["by_leaf"], iters)
+                         if (name, label) == ("sqnorm", "exchange")
+                         else cuda_ms(over(kernel), iters))
+            row = {"ms": kernel_ms,
                    "plain_ms": cuda_ms(over(plain), iters),
                    "library_ms": (cuda_ms(over(library), iters)
                                   if library is not None else None)}
@@ -676,7 +767,26 @@ def phase_qsgd_timing(W) -> dict:
             print(f"  timing {name} {label} ({len(group)} tensors, "
                   f"{n_el} elements): "
                   + " ".join(f"{k}={v}" for k, v in row.items()))
-    del items, embed
+    sq_ex = {
+        "grouped_by_leaf_29x4": cuda_ms(grouped["by_leaf"], 5),
+        "grouped_by_replica_4x29": cuda_ms(grouped["by_replica"], 5),
+        "one_call_per_tensor_116": cuda_ms(
+            lambda: [qq.sqnorm(x) for x, *_ in items], 5),
+        "torch_dot_per_tensor_116": cuda_ms(
+            lambda: [torch.dot(x.view(-1), x.view(-1)) for x, *_ in items],
+            5),
+        "foreach_norm_by_leaf_29x4": cuda_ms(
+            lambda: [torch._foreach_norm(g) for g in by_leaf], 5),
+        "foreach_norm_by_replica_4x29": cuda_ms(
+            lambda: [torch._foreach_norm(g) for g in by_replica], 5),
+    }
+    print("  timing sqnorm per exchange (ms): " + json.dumps(sq_ex))
+    print(f"  sqnorm grouped as the paths call it vs torch.dot per tensor: "
+          f"{sq_ex['grouped_by_leaf_29x4']:.4f} / "
+          f"{sq_ex['grouped_by_replica_4x29']:.4f} vs "
+          f"{sq_ex['torch_dot_per_tensor_116']:.4f} ms")
+    out["sqnorm_exchange"] = sq_ex
+    del items, embed, by_leaf, by_replica
     release()
     keys = [prng.split(k, len(leaves))
             for k in prng.replica_keys(prng.prng_key(17), range(R))]
@@ -694,7 +804,9 @@ def phase_flash_timing() -> dict:
     kernel, its plain version and torch's scaled_dot_product_attention
     (is_causal=True, a yardstick the port never calls) by CUDA events; and
     at one prefill_32k layer the kernel and SDPA alone (the plain version's
-    f32 logits would take 68 GB)."""
+    f32 logits would take 68 GB).  Prints the kernel's achieved TFLOP/s
+    (the FLOPs its bound counts, over its time) and its share of the
+    bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -703,8 +815,8 @@ def phase_flash_timing() -> dict:
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(4)
     out = {}
-    for label, shape, iters in (("olmo_prefill", OLMO_PREFILL, 10),
-                                ("prefill_32k", PREFILL_32K, 2)):
+    for label, shape, iters in (("olmo_prefill", OLMO_PREFILL, 20),
+                                ("prefill_32k", PREFILL_32K, 3)):
         q, k, v = qkv(shape, torch.bfloat16, gen, DEVICE)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         row = {"ms": cuda_ms(lambda: fa.flash_attention(q, k, v), iters),
@@ -713,6 +825,10 @@ def phase_flash_timing() -> dict:
                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True), iters)}
         row["bound_ms"], row["bound_by"] = flash_bound(shape)
+        B, S, H, K, d = shape
+        flops = 4 * d * B * H * attention_pairs(S, S, True, 0)
+        row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         out[label] = row
         print(f"  timing flash_attention {label} {shape} bf16 causal: "
               + " ".join(f"{k}={v}" for k, v in row.items()))
@@ -898,6 +1014,12 @@ def main() -> int:
     for name, report in reports.items():
         for line in report.splitlines():
             print(f"  nvcc {name}: {line}")
+    spills = [f"{name}: {line.strip()}" for name, report in reports.items()
+              for line in report.splitlines()
+              if any(int(n) for n in re.findall(
+                  r"(\d+) bytes spill (?:stores|loads)", line))]
+    print(f"  register spills in the -Xptxas -v reports: {spills or 'none'}")
+    check(not spills, f"a kernel spills registers: {spills}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"  allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "

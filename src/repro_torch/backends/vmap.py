@@ -58,9 +58,12 @@ class VmapBackend(ExecutionBackend):
 
     def _lower_quantized_all_mean(self, op):
         """Byte-true QSGD-quantized parameter deltas from the shared
-        full-precision anchor, leaf by leaf: each replica r quantizes its
-        f32 delta ``w_r − anchor`` under ``split(fold_in(key, r),
-        n_leaves)[leaf]`` into (int8 levels, norm); the receiver
+        full-precision anchor, leaf by leaf: the R f32 deltas ``w_r −
+        anchor`` of a leaf are formed together and their norms taken in
+        one call (with the kernel; R − 1 deltas more alive than one at a
+        time), then each replica r quantizes its delta under
+        ``split(fold_in(key, r), n_leaves)[leaf]`` into (int8 levels,
+        norm); the receiver
         dequantizes all R into one (R, ...) f32 buffer, whose replica mean
         and Σ_r ||dq_r − mean||² the fused mean + sqdev kernel gives in one
         pass.  The anchor moves by the mean, in place, and is written into
@@ -76,12 +79,15 @@ class VmapBackend(ExecutionBackend):
                          for k in qsgd_mod.replica_keys(key, range(R))]
             s_k = 0
             for i, (w, a) in enumerate(zip(leaves, anchors)):
+                deltas = [w[r].to(torch.float32) - a for r in range(R)]
+                nms = qsgd_mod.norms(deltas) if kernel else [None] * R
                 dq = torch.empty(w.shape, dtype=torch.float32,
                                  device=w.device)
                 for r in range(R):
                     lv, nm = qsgd_mod.quantize(
-                        w[r].to(torch.float32) - a, leaf_keys[r][i], bits,
-                        use_kernel=kernel)
+                        deltas[r], leaf_keys[r][i], bits, use_kernel=kernel,
+                        norm=nms[r])
+                    deltas[r] = None
                     dq[r] = qsgd_mod.dequantize(lv, nm, bits,
                                                 use_kernel=kernel)
                 if kernel:

@@ -13,10 +13,14 @@ replica's key per leaf, in ``tree_leaves`` order.  With ``use_kernel``
 through the kernel wrappers (``kernels/ops.py``), which launch the CUDA
 kernels for tensors on the card and take the plain versions for tensors
 on the CPU; ``use_kernel=False`` takes the plain versions everywhere.
+Where many tensors are quantized together (the leaves of a replica's
+gradient here, the replicas' deltas of a leaf in the quantized sync) the
+caller takes all their norms in one call (``norms``) and hands each to
+``quantize``.
 """
 from __future__ import annotations
 
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -32,17 +36,28 @@ Pytree = Any
 replica_keys = prng.replica_keys
 
 
+def norms(vs: List[torch.Tensor]) -> torch.Tensor:
+    """||v||₂ of each tensor of ``vs`` as one f32 tensor (len(vs),): one
+    grouped sqnorm launch on the card; each equals the norm ``quantize``
+    would take of that tensor alone, bit for bit."""
+    return torch.sqrt(kops.qsgd_sqnorm_many(
+        [v.to(torch.float32).contiguous() for v in vs]))
+
+
 def quantize(v: torch.Tensor, key: prng.Key, bits: int = 8, *,
-             use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+             use_kernel: bool = True, norm: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """QSGD stochastic quantization of one tensor:
     q_i = ||v||₂ · sgn(v_i) · ξ_i / s with s = 2^(bits−1) − 1 and
     ξ_i ∈ {⌊|v_i|·s/‖v‖⌋, ⌈…⌉} chosen with uniforms drawn under ``key``,
-    so E[q] = v.  Returns (int8 levels, f32 norm scalar)."""
+    so E[q] = v.  ``norm``: ||v||₂ (one f32 value), when the caller has
+    taken it already (``norms``).  Returns (int8 levels, f32 norm)."""
     vf = v.to(torch.float32).contiguous()
     u = prng.uniform(key, v.shape, device=v.device)
     if not use_kernel:
-        return kref.quantize_ref(vf, u, bits)
-    norm = torch.sqrt(kops.qsgd_sqnorm(vf))
+        return kref.quantize_ref(vf, u, bits, norm=norm)
+    if norm is None:
+        norm = torch.sqrt(kops.qsgd_sqnorm(vf))
     return kops.qsgd_quantize(vf, u, norm, bits), norm
 
 
@@ -99,7 +114,9 @@ def make_qsgd_step(loss_fn, optimizer: Optimizer, bits: int = 8, *,
     gradients are quantized and dequantized leaf by leaf under
     ``split(fold_in(key, r), n_leaves)`` and summed in f32 (one
     gradient-sized buffer beside one replica's gradients); the mean,
-    cast to each parameter's dtype, updates every replica alike."""
+    cast to each parameter's dtype, updates every replica alike.  With
+    ``use_kernel`` the norms of a replica's leaves are taken in one call
+    before its quantize loop."""
 
     def step(W, opt_state, batch, lr, key):
         R = n_replicas(W)
@@ -111,9 +128,12 @@ def make_qsgd_step(loss_fn, optimizer: Optimizer, bits: int = 8, *,
             leaves = tree_leaves(grads)
             del grads
             with torch.no_grad():
+                nms = (norms(leaves) if use_kernel
+                       else [None] * len(leaves))
                 for i, k in enumerate(prng.split(rkey, len(leaves))):
                     g = leaves[i]
-                    lv, nm = quantize(g, k, bits, use_kernel=use_kernel)
+                    lv, nm = quantize(g, k, bits, use_kernel=use_kernel,
+                                      norm=nms[i])
                     leaves[i] = None           # free the gradient leaf
                     dq = dequantize(lv, nm, bits, g.dtype,
                                     use_kernel=use_kernel).to(torch.float32)

@@ -1,12 +1,13 @@
 // QSGD stochastic quantization, CUDA C++ for Hopper (sm_90a).
 //
 // Replaces the three Pallas kernels of repro/kernels/qsgd_quant.py:
-//   sqnorm     (_sqsum_kernel)    sq = sum_i x[i]^2                  f32 scalar
+//   sqnorm     (_sqsum_kernel)    sq[t] = sum_i x_t[i]^2 for each tensor t of
+//                                 a group, f32
 //   quantize   (_quant_kernel)    levels[i] = int8(sign(x[i]) * (floor(y) + [u[i] < y - floor(y)]))
 //                                 with y = |x[i]| / norm * s, s = 2^(bits-1) - 1,
 //                                 and y = 0 where norm is 0
 //   dequantize (_dequant_kernel)  out[i] = float(levels[i]) * (norm / s)
-// over a contiguous tensor of n elements viewed flat.  The caller takes
+// over contiguous tensors of n elements viewed flat.  The caller takes
 // norm = sqrt(sq) on the device; quantize and dequantize read it through a
 // pointer, so there is no host round trip between the three launches.
 //
@@ -30,10 +31,21 @@
 // Determinism.  The Pallas sqnorm carries its sum across an in-order grid;
 // Hopper blocks run in no order, so the sum takes two passes with no float
 // atomics: pass 1 reduces each block's grid-stride range in a fixed tree
-// into partials[blockIdx.x], pass 2 is one block that sums the partials in
-// a fixed order.  The grid size is a function of n alone (set by the
-// caller), so sq repeats bit for bit.  It sets the levels, the levels set
-// the exchange's S_k, and ADPSGD moves its period on S_k thresholds.
+// into partials[blockIdx.x], pass 2 gives each tensor one block that sums
+// its partials in a fixed order.  A tensor's block count is a function of
+// its n alone (set by the caller), so sq repeats bit for bit, and is the
+// same whether the tensor is summed alone or in a group.  It sets the
+// levels, the levels set the exchange's S_k, and ADPSGD moves its period
+// on S_k thresholds.
+//
+// Groups.  The paths take the norms of many tensors at once (the R deltas
+// of a leaf in a quantized sync, the leaves of one replica's gradient in a
+// qsgd step).  One launch covers up to kMaxGroup tensors: the table of
+// (pointer, n, first block) goes to both kernels by value as a kernel
+// parameter, so there is no host-to-device copy; pass 1 runs over all the
+// group's blocks, each finding its tensor by a binary search of the table.
+// A call costs one host round of launch overhead, not one per tensor: on
+// the small leaves that overhead, not the card, was the sum's time.
 //
 // Offsets are 64-bit: the embedding leaf alone is 103M elements.
 //
@@ -79,25 +91,51 @@ __device__ __forceinline__ int64_t grid_stride() {
   return static_cast<int64_t>(gridDim.x) * kThreads;
 }
 
+constexpr int kMaxGroup = 64;   // tensors per sqnorm launch (MAX_GROUP in qsgd_quant.py)
+
+struct Group {
+  const float* x[kMaxGroup];
+  long long n[kMaxGroup];
+  int first[kMaxGroup + 1];   // first block of tensor t; first[count] = all blocks
+  int count;
+};
+
+// Tensor t of the group, blocks first[t] ... first[t + 1] - 1, each walking
+// the grid-stride range that a launch over tensor t alone would give it.
 __global__ void __launch_bounds__(kThreads)
-sqnorm_pass1(const float* __restrict__ x, float* __restrict__ partials,
-             int64_t n) {
+sqnorm_pass1(const Group g, float* __restrict__ partials) {
+  const int block = static_cast<int>(blockIdx.x);
+  int lo = 0, hi = g.count - 1;          // the last t with first[t] <= block
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (g.first[mid] <= block) lo = mid; else hi = mid - 1;
+  }
+  const float* __restrict__ x = g.x[lo];
+  const int64_t n = g.n[lo];
+  const int64_t stride =
+      static_cast<int64_t>(g.first[lo + 1] - g.first[lo]) * kThreads;
   float acc = 0.0f;
-  for (int64_t i = first_index(); i < n; i += grid_stride()) {
+  for (int64_t i = static_cast<int64_t>(block - g.first[lo]) * kThreads
+                   + threadIdx.x;
+       i < n; i += stride) {
     const float v = x[i];
     acc += v * v;
   }
-  const float block = block_sum(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = block;
+  const float total = block_sum(acc);
+  if (threadIdx.x == 0) partials[block] = total;
 }
 
+// One block per tensor: the sum of its partials.
 __global__ void __launch_bounds__(kThreads)
-sqnorm_pass2(const float* __restrict__ partials, float* __restrict__ out,
-             int n) {
+sqnorm_pass2(const Group g, const float* __restrict__ partials,
+             float* __restrict__ out) {
+  const int t = blockIdx.x;
+  const float* p = partials + g.first[t];
+  const int n = g.first[t + 1] - g.first[t];
   float acc = 0.0f;
-  for (int i = threadIdx.x; i < n; i += kThreads) acc += partials[i];
+  for (int i = threadIdx.x; i < n; i += kThreads) acc += p[i];
   const float total = block_sum(acc);
-  if (threadIdx.x == 0) *out = total;
+  if (threadIdx.x == 0) out[t] = total;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -129,16 +167,32 @@ dequantize_kernel(const int8_t* __restrict__ levels,
 
 }  // namespace
 
-extern "C" int repro_qsgd_sqnorm_f32(const void* x, void* partials, void* sq,
-                                     long long n, int blocks, void* stream) {
+// count <= kMaxGroup tensors: x[t] (device pointers), n[t] elements and
+// blocks[t] pass-1 blocks each; partials holds sum(blocks) floats and sq
+// count floats.
+extern "C" int repro_qsgd_sqnorm_many_f32(const void* const* x,
+                                          const long long* n,
+                                          const int* blocks, int count,
+                                          void* partials, void* sq,
+                                          void* stream) {
+  if (count < 1 || count > kMaxGroup) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Group g;
+  g.count = count;
+  g.first[0] = 0;
+  for (int t = 0; t < count; ++t) {
+    g.x[t] = static_cast<const float*>(x[t]);
+    g.n[t] = n[t];
+    g.first[t + 1] = g.first[t] + blocks[t];
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  sqnorm_pass1<<<blocks, kThreads, 0, st>>>(
-      static_cast<const float*>(x), static_cast<float*>(partials),
-      static_cast<int64_t>(n));
+  sqnorm_pass1<<<g.first[count], kThreads, 0, st>>>(
+      g, static_cast<float*>(partials));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sqnorm_pass2<<<1, kThreads, 0, st>>>(static_cast<const float*>(partials),
-                                       static_cast<float*>(sq), blocks);
+  sqnorm_pass2<<<count, kThreads, 0, st>>>(
+      g, static_cast<const float*>(partials), static_cast<float*>(sq));
   return static_cast<int>(cudaGetLastError());
 }
 

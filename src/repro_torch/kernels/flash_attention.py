@@ -3,9 +3,12 @@
 
 The kernel is CUDA C++ for Hopper, ``csrc/flash_attention.cu``, built and
 loaded by ``kernels/build.py`` at first use; nothing is compiled when this
-module is imported.  ``flash_attention`` checks its inputs, sends CPU
-tensors to the plain version (``kernels/ref.py::attention_ref``) and
-launches the kernel for CUDA tensors — there is no fallback: a kernel that
+module is imported.  bf16 at head dims 64 and 128 runs on the tensor cores
+(``wgmma`` with TMA loads); f32, and bf16 at d = 32, run on the CUDA
+cores (f32's tolerance is beyond bf16 or tf32 products).
+``flash_attention`` checks its inputs, sends CPU tensors to the plain
+version (``kernels/ref.py::attention_ref``) and launches the kernel for
+CUDA tensors — there is no fallback: a kernel that
 fails to build or launch raises.  Each launch adds one to
 ``flash_attention.launches``.
 
@@ -82,8 +85,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,Sq,H,d); k, v: (B,Sk,K,d) with H % K == 0 (kv head h // (H/K)
     serves q head h).  Causal and/or sliding-window softmax attention,
     output (B,Sq,H,d) in q's dtype.  ``block_q`` and ``block_k`` decide only
-    which lengths are accepted, as in the reference; the kernel tiles by 64
-    on its own."""
+    which lengths are accepted, as in the reference; the kernel tiles on
+    its own (128 x 128 on the tensor cores, 64 x 64 on the CUDA cores)."""
     _check(q, k, v)
     B, Sq, H, d = q.shape
     Sk, K = k.shape[1], k.shape[2]

@@ -16,6 +16,10 @@ def qsgd_sqnorm(x):
     return _qq.sqnorm(x)
 
 
+def qsgd_sqnorm_many(xs):
+    return _qq.sqnorm_many(xs)
+
+
 def qsgd_quantize(x, u, norm, bits: int = 8):
     return _qq.quantize(x, u, norm, bits)
 

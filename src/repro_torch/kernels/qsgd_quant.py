@@ -1,5 +1,7 @@
 """QSGD stochastic quantization kernels (port of
-``repro/kernels/qsgd_quant.py``: ``sqnorm``, ``quantize``, ``dequantize``).
+``repro/kernels/qsgd_quant.py``: ``sqnorm``, ``quantize``, ``dequantize``;
+``sqnorm_many`` takes the squared norms of a group of tensors in one
+launch, and ``sqnorm`` is its group of one).
 
 The kernels are CUDA C++ for Hopper, ``csrc/qsgd_quant.cu``, built and
 loaded by ``kernels/build.py`` at first use; nothing is compiled when this
@@ -16,21 +18,23 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Sequence
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (dequantize_ref, qsgd_scale, quantize_ref,
-                                     sqnorm_ref)
+                                     sqnorm_many_ref)
 
 SOURCE = build.CSRC / "qsgd_quant.cu"
+MAX_GROUP = 64       # kMaxGroup in csrc/qsgd_quant.cu: tensors per launch
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     return build.load(SOURCE, {
-        "repro_qsgd_sqnorm_f32": (p, p, p, i64, i32, p),
+        "repro_qsgd_sqnorm_many_f32": (p, p, p, i32, p, p, p),
         "repro_qsgd_quantize_f32": (p, p, p, p, i64, i32, i32, p),
         "repro_qsgd_dequantize_i8": (p, p, p, i64, i32, i32, p),
     })
@@ -56,22 +60,46 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def sqnorm_many(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Σ x² of each f32 tensor of ``xs`` (all on one device), as an f32
+    tensor of shape (len(xs),) on that device.  On the card: one launch
+    per ``MAX_GROUP`` tensors, each adding one to ``sqnorm.launches``;
+    each sum equals, bit for bit, what the tensor gives alone."""
+    xs = list(xs)
+    if not xs:
+        raise ValueError("sqnorm_many needs at least one tensor")
+    for x in xs:
+        _check(x, "x", torch.float32)
+        if x.device != xs[0].device:
+            raise ValueError(f"sqnorm_many: tensors lie on {xs[0].device} "
+                             f"and {x.device}; they must share one device")
+    if xs[0].device.type == "cpu":
+        return sqnorm_many_ref(xs)
+    blocks = [build.grid_blocks(x.numel()) for x in xs]
+    partials = torch.empty(sum(blocks), dtype=torch.float32,
+                           device=xs[0].device)
+    sq = torch.empty(len(xs), dtype=torch.float32, device=xs[0].device)
+    lib, stream = _library(), _stream(xs[0])
+    first = 0
+    with torch.cuda.device(xs[0].device):
+        for t0 in range(0, len(xs), MAX_GROUP):
+            group, nb = xs[t0:t0 + MAX_GROUP], blocks[t0:t0 + MAX_GROUP]
+            k = len(group)
+            err = lib.repro_qsgd_sqnorm_many_f32(
+                (ctypes.c_void_p * k)(*(x.data_ptr() for x in group)),
+                (ctypes.c_longlong * k)(*(x.numel() for x in group)),
+                (ctypes.c_int * k)(*nb), k,
+                partials.data_ptr() + 4 * first, sq.data_ptr() + 4 * t0,
+                stream)
+            build.check(err, "qsgd sqnorm")
+            sqnorm.launches += 1
+            first += sum(nb)
+    return sq
+
+
 def sqnorm(x: torch.Tensor) -> torch.Tensor:
     """Σ x² of an f32 tensor, as an f32 scalar tensor on x's device."""
-    _check(x, "x", torch.float32)
-    if x.device.type == "cpu":
-        return sqnorm_ref(x)
-    n = x.numel()
-    blocks = build.grid_blocks(n)
-    partials = torch.empty(blocks, dtype=torch.float32, device=x.device)
-    sq = torch.empty((), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _library().repro_qsgd_sqnorm_f32(
-            x.data_ptr(), partials.data_ptr(), sq.data_ptr(), n, blocks,
-            _stream(x))
-    build.check(err, "qsgd sqnorm")
-    sqnorm.launches += 1
-    return sq
+    return sqnorm_many([x])[0]
 
 
 def quantize(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor,

@@ -3,7 +3,7 @@ wrapper, and what ``chip_smoke.py`` holds each CUDA kernel against)."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -51,6 +51,11 @@ def qsgd_scale(bits: int) -> int:
 def sqnorm_ref(x: torch.Tensor) -> torch.Tensor:
     """Σ x² in f32, as a scalar tensor."""
     return x.to(torch.float32).square().sum()
+
+
+def sqnorm_many_ref(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``sqnorm_ref`` of each tensor of ``xs``, stacked: shape (len(xs),)."""
+    return torch.stack([sqnorm_ref(x) for x in xs])
 
 
 def quantize_ref(x: torch.Tensor, u: torch.Tensor, bits: int = 8,

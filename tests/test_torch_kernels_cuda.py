@@ -9,9 +9,11 @@ Imports neither jax nor the reference, so it runs where the port runs:
 Without a CUDA device every case skips (the kernels have no CPU mode).
 Tolerances: mean atol 1e-6, sq and sqnorm rtol 1e-5 (f32 sums in another
 order); levels and dequantized values bit-identical given the same norm
-and uniforms; flash attention atol = rtol = 2e-5 in f32 and 2e-2 in bf16,
-the tolerances of the reference's kernel test (online against exact
-softmax; one bf16 rounding of the output)."""
+and uniforms; a tensor's sqnorm in a group bit-identical to its sqnorm
+alone; flash attention atol = rtol = 2e-5 in f32 and 2e-2 in bf16, the
+tolerances of the reference's kernel test (online against exact softmax;
+one bf16 rounding of the output, and of P in the bf16 tensor-core
+instance)."""
 import numpy as np
 import pytest
 import torch
@@ -137,38 +139,92 @@ def test_quantized_sync_uses_kernels_on_cuda(cuda):
         return VmapBackend(use_kernel=use_kernel, device=device) \
             .quantized_all_mean(8)(mv(W), mv(anchor), key)
 
-    before = (mean_and_sqdev.launches, qsgd_quant.quantize.launches)
+    before = (mean_and_sqdev.launches, qsgd_quant.sqnorm.launches,
+              qsgd_quant.quantize.launches)
     Wk, ak, sk = run(cuda, None)
-    assert (mean_and_sqdev.launches, qsgd_quant.quantize.launches) == \
-        (before[0] + 2, before[1] + 2 * 4)
+    assert (mean_and_sqdev.launches, qsgd_quant.sqnorm.launches,
+            qsgd_quant.quantize.launches) == \
+        (before[0] + 2, before[1] + 2, before[2] + 2 * 4)
     Wp, ap, sp = run(cuda, False)
     assert abs(float(sk) - float(sp)) <= 1e-5 * abs(float(sp))
     torch.testing.assert_close(Wk["a"], Wp["a"], rtol=1e-6, atol=1e-6)
     assert torch.equal(Wk["a"], Wk["a"][:1].expand_as(Wk["a"]))
 
 
-FLASH_CASES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 32), (1, 384, 6, 3, 128),
-               (2, 128, 8, 1, 64), (1, 100, 4, 2, 128)]
+def _sqnorm_group(sizes, seed):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy((rng.randn(n) * 3.0).astype(np.float32))
+            .to("cuda") for n in sizes]
+
+
+# one tensor each; 29 mixed leaves (an embedding-like leaf among 2-d
+# matrices and small vectors); 130 tensors, three launches of up to 64
+SQNORM_GROUPS = {"1": [1], "7": [7], "4097": [4097],
+                 "embedding": [103_022_592],
+                 "29_leaves": [50304 * 64] + [2048 * 64, 64 * 256, 256 * 64,
+                                              64, 7] * 4 + [4097] * 4,
+                 "130_tensors": list(range(1, 131))}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,K,d", FLASH_CASES)
+@pytest.mark.parametrize("name", list(SQNORM_GROUPS))
+def test_sqnorm_many_matches_plain_and_single(cuda, name):
+    sizes = SQNORM_GROUPS[name]
+    xs = _sqnorm_group(sizes, len(sizes))
+    before = qsgd_quant.sqnorm.launches
+    sq = qsgd_quant.sqnorm_many(xs)
+    sq2 = qsgd_quant.sqnorm_many(xs)
+    torch.cuda.synchronize()
+    launches = -(-len(xs) // qsgd_quant.MAX_GROUP)
+    assert qsgd_quant.sqnorm.launches == before + 2 * launches
+    assert sq.shape == (len(xs),) and sq.dtype == torch.float32
+    torch.testing.assert_close(sq, torch_ref.sqnorm_many_ref(xs), rtol=1e-5,
+                               atol=0)
+    assert torch.equal(sq, sq2)
+    alone = torch.stack([qsgd_quant.sqnorm(x) for x in xs])
+    assert torch.equal(sq, alone)
+
+
+@pytest.mark.cuda
+def test_sqnorm_many_refuses_mixed_devices(cuda):
+    with pytest.raises(ValueError, match="one device"):
+        qsgd_quant.sqnorm_many([torch.ones(4, device=cuda), torch.ones(4)])
+
+
+# (B, Sq, Sk, H, K, d): the reference's test shapes and S = 100; then, at
+# every head dim (bf16: the SIMT instance at 32, the wgmma instance at 64
+# and 128), one 128 x 128 tile, several 128-row tiles (S = 640), S = 100,
+# Sq != Sk (ragged Sk too) and GLM4's 16:1 GQA.
+FLASH_CASES = ([(1, 128, 128, 4, 4, 64), (2, 256, 256, 4, 2, 32),
+                (1, 384, 384, 6, 3, 128), (2, 128, 128, 8, 1, 64),
+                (1, 100, 100, 4, 2, 128)]
+               + [c for d in (32, 64, 128)
+                  for c in ((1, 128, 128, 1, 1, d), (1, 640, 640, 4, 2, d),
+                            (1, 100, 100, 4, 2, d), (1, 128, 384, 4, 2, d),
+                            (1, 256, 100, 4, 2, d), (1, 256, 256, 32, 2, d))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,K,d", FLASH_CASES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
-                                           (False, 0)])
-def test_flash_attention_matches_plain(cuda, B, S, H, K, d, dtype, tol,
+                                           (True, 200), (False, 0),
+                                           (False, 64)])
+def test_flash_attention_matches_plain(cuda, B, Sq, Sk, H, K, d, dtype, tol,
                                        causal, window):
-    rng = np.random.RandomState(S * H + window)
-    q, k, v = (torch.from_numpy(rng.randn(B, S, n, d).astype(np.float32))
-               .to(cuda, dtype) for n in (H, K, K))
+    rng = np.random.RandomState(Sq * H + Sk + window)
+    q = torch.from_numpy(rng.randn(B, Sq, H, d).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(B, Sk, K, d).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda, dtype) for t in (q, k, v))
     before = fa.flash_attention.launches
     out = fa.flash_attention(q, k, v, causal=causal, window=window)
     again = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 2
     want = torch_ref.attention_ref(q, k, v, causal=causal, window=window)
-    assert out.dtype == dtype and out.shape == (B, S, H, d)
+    assert out.dtype == dtype and out.shape == (B, Sq, H, d)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
     assert torch.equal(out, again)
 

@@ -35,7 +35,7 @@ from repro.optim import get_optimizer as jax_get_optimizer
 from repro_torch.backends import VmapBackend
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import averaging as torch_avg
-from repro_torch.core import qsgd
+from repro_torch.core import prng, qsgd
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.interop import params_from_numpy
 from repro_torch.launch.steps import make_loss_fn
@@ -188,3 +188,34 @@ def test_quantized_all_mean_plain_route_agrees():
             _pair(KEY)))
     for x, y in zip(tree_leaves(outs[0]), tree_leaves(outs[1])):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_quantize_with_given_norm_equals_quantize_alone(use_kernel):
+    """``quantize(v, key, norm=...)`` with the norm of a grouped call is
+    ``quantize(v, key)``, bit for bit, levels and norm."""
+    rng = np.random.RandomState(8)
+    vs = [torch.from_numpy(rng.randn(*s).astype(np.float32))
+          for s in ((300,), (7, 5), (1,), (64, 33))]
+    nms = qsgd.norms(vs)
+    assert nms.shape == (len(vs),) and nms.dtype == torch.float32
+    for i, (v, k) in enumerate(zip(vs, prng.split(_pair(KEY), len(vs)))):
+        lv, nm = qsgd.quantize(v, k, 8, use_kernel=use_kernel, norm=nms[i])
+        lv0, nm0 = qsgd.quantize(v, k, 8, use_kernel=use_kernel)
+        assert torch.equal(lv, lv0) and torch.equal(nm, nm0)
+
+
+def test_norms_match_reference_norms():
+    """``norms`` of a group against the reference's per-tensor norm
+    (``jnp.linalg.norm`` of the f32 tensor), rtol 1e-6; a bf16 tensor is
+    taken in f32."""
+    rng = np.random.RandomState(9)
+    arrays = [rng.randn(*s).astype(np.float32)
+              for s in ((4097,), (33, 17), (1,), (512, 128))]
+    got = qsgd.norms([torch.from_numpy(a) for a in arrays])
+    for g, a in zip(got, arrays):
+        np.testing.assert_allclose(float(g), float(jnp.linalg.norm(a)),
+                                   rtol=1e-6)
+    b = torch.from_numpy(arrays[1]).to(torch.bfloat16)
+    assert torch.equal(qsgd.norms([b])[0],
+                       torch.sqrt(b.float().square().sum()))

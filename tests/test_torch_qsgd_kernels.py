@@ -162,3 +162,38 @@ def test_port_follows_the_jnp_formula_not_the_pallas_body():
     lv = torch_ops.qsgd_quantize(torch.from_numpy(x), torch.from_numpy(u),
                                  torch.tensor(float(nm_or)), 8)
     np.testing.assert_array_equal(lv.numpy(), np.asarray(lv_or))
+
+
+def test_sqnorm_many_plain_route_matches_pallas_per_tensor():
+    """A mixed group through ``sqnorm_many``'s plain route against the
+    reference's Pallas ``sqnorm`` in interpret mode, tensor by tensor
+    (rtol 1e-6: f32 sums in another order), and against ``sqnorm`` of each
+    tensor alone, bit for bit."""
+    xs = [_xu(s, i)[0] for i, s in enumerate(((7,), (1000,), (1024,),
+                                             (4097,), (33, 17), (1,)))]
+    got = torch_ops.qsgd_sqnorm_many([torch.from_numpy(x) for x in xs])
+    assert got.shape == (len(xs),) and got.dtype == torch.float32
+    for g, x in zip(got, xs):
+        want = jax_qq.sqnorm(jnp.asarray(x), interpret=True)
+        np.testing.assert_allclose(float(g), float(want), rtol=1e-6)
+        assert torch.equal(g, torch_ops.qsgd_sqnorm(torch.from_numpy(x)))
+
+
+def test_sqnorm_many_cpu_route_counts_no_launch():
+    xs = [torch.randn(n) for n in (5, 64, 130)]
+    before = qsgd_quant.sqnorm.launches
+    got = qsgd_quant.sqnorm_many(xs)
+    assert qsgd_quant.sqnorm.launches == before
+    assert torch.equal(got, torch_ref.sqnorm_many_ref(xs))
+    assert torch.equal(got, torch.stack([torch_ref.sqnorm_ref(x)
+                                         for x in xs]))
+
+
+def test_sqnorm_many_rejects_bad_groups():
+    with pytest.raises(ValueError, match="at least one"):
+        qsgd_quant.sqnorm_many([])
+    with pytest.raises(TypeError):
+        qsgd_quant.sqnorm_many([torch.ones(4),
+                                torch.ones(4, dtype=torch.int32)])
+    with pytest.raises(ValueError, match="contiguous"):
+        qsgd_quant.sqnorm_many([torch.ones(4), torch.randn(8, 4).T])
