@@ -20,12 +20,21 @@ then serves OLMo-1B at its published width and all 16 layers through the
 server's entry points (phase 5: a prefill step with the flash-attention
 kernel, its plain and f32 counterparts, and greedy decoding with KV
 caches), and times each kernel beside its plain version, a library call
-and its bound.  Each path is driven with the launch counts set to 0 just
-before it and read just after.
+and its bound.  Phase 6 reruns phase 3 under the telemetry clocks
+(``--net 10gbps``, ``--net real``, ``--net real --wallclock-sample-every
+4``); phase 7 runs the last three strategies on the same model
+(``hier_adpsgd``, ``dasgd``, ``adacomm`` on time blocks); phase 8 runs
+the paper's CNN experiment (``benchmarks/common.py``'s settings, built
+from the port's modules, from the reference's init) for all nine
+strategies at 10 and 100 Gbps beside ``BENCH_engine.json``, holding its
+loss and gradients on the card against the CPU route and every sync's
+S_k against the plain route.  Each path is driven with the launch counts
+set to 0 just before it and read just after.
 
 Phases: 1 environment and build (no kernel may spill registers); 2
 kernels against their plain versions; 3, 3b, 3c the training paths; 4
-kernel timings; 5 serving.  Any failed check exits non-zero.
+kernel timings; 5 serving; 6 the clock; 7 the last three strategies; 8
+the CNN experiment.  Any failed check exits non-zero.
 The card's ``nvidia-smi`` name and power limit stand on the line before
 the ``{"kernels": [...]}`` line, and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -59,20 +68,34 @@ MAIN_ARGV = BASE_ARGV + ["--method", "adpsgd", "--steps", "16"]
 QSGD_PERIODIC_ARGV = BASE_ARGV + ["--method", "qsgd_periodic",
                                   "--steps", "16"]
 QSGD_ARGV = BASE_ARGV + ["--method", "qsgd", "--steps", "8"]
+HIER_ARGV = BASE_ARGV + ["--method", "hier_adpsgd", "--inner-period", "2",
+                         "--steps", "16"]
+DASGD_ARGV = BASE_ARGV + ["--method", "dasgd", "--p-const", "4",
+                          "--steps", "16"]
+ADACOMM_ARGV = BASE_ARGV + ["--method", "adacomm", "--adacomm-mode", "time",
+                            "--net", "10gbps", "--adacomm-t0", "2.0",
+                            "--steps", "16"]
 N_LEAVES = 29
+N_PARAMS = 371_458_048        # per replica: OLMo-1B full width, 4 layers
+# the paper's CNN experiment (benchmarks/common.py, BENCH_engine.json)
+CNN_R, CNN_STEPS, CNN_LEAVES = 8, 60, 8
 BITS = 8
 DEVICE = "cuda"
 
 # (R, shape): the reference's kernel-test shapes, then each distinct leaf
 # shape of the paths
-KERNEL_CASES = [(2, (100,)), (8, (33, 7)), (16, (1024,)), (4, (5, 4, 3)),
-                (4, (2048, 2048)), (4, (2048, 8192)), (4, (8192, 2048)),
-                (4, (50304, 2048))]
+# shape of the OLMo path and each leaf of phase 8's CNN at its R
 EMBED_SHAPE = (50304, 2048)
 LEAF_SHAPES = [(2048, 2048), (2048, 8192), (8192, 2048), EMBED_SHAPE]
+CNN_LEAF_SHAPES = [(3, 3, 3, 16), (16,), (3, 3, 16, 32), (32,), (2048, 256),
+                   (256,), (256, 10), (10,)]
+KERNEL_CASES = ([(2, (100,)), (8, (33, 7)), (16, (1024,)), (4, (5, 4, 3))]
+                + [(4, s) for s in LEAF_SHAPES]
+                + [(CNN_R, s) for s in CNN_LEAF_SHAPES])
 # (shape, bits): the reference's QSGD kernel-test cases, then the leaves
 QSGD_CASES = ([((n,), b) for n in (7, 1000, 1024, 4097) for b in (4, 8)]
-              + [((33, 17), 8)] + [(s, BITS) for s in LEAF_SHAPES])
+              + [((33, 17), 8)]
+              + [(s, BITS) for s in LEAF_SHAPES + CNN_LEAF_SHAPES])
 KERNEL_NAMES = ("mean_and_sqdev", "sqnorm", "quantize", "dequantize",
                 "flash_attention")
 # flash attention (B, S, H, K, d), or (B, Sq, Sk, H, K, d): the reference's
@@ -453,11 +476,13 @@ def phase_flash_kernels(device) -> dict:
 
 
 # ------------------------------------------------------------- phases 3-3c
-def drive(argv, callbacks=(), wrap=None) -> dict:
+def drive(argv, callbacks=(), wrap=None, time_programs=True,
+          setup=None) -> dict:
     """Build the engine through the training CLI's own setup, time each of
-    its programs (host clock between synchronisations), set the launch
-    counts to 0, run, and read the counts.  ``wrap(engine, name, program)``
-    may wrap a program further (inside the timer)."""
+    its programs (host clock between synchronisations, unless
+    ``time_programs`` is False), set the launch counts to 0, run, and read
+    the counts.  ``wrap(engine, name, program)`` may wrap a program
+    further (inside the timer); ``setup(engine)`` runs before the run."""
     import torch
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
@@ -472,10 +497,13 @@ def drive(argv, callbacks=(), wrap=None) -> dict:
           f" vocab={cfg.vocab_size} params/replica={n_params} "
           f"leaves={n_leaves} R={args.replicas} method={args.method} "
           f"backend={engine.backend.describe()}")
-    times = {}
+    times, calls = {}, {}
 
     def timed(name, fn):
         def run(*a):
+            calls[name] = calls.get(name, 0) + 1
+            if not time_programs:
+                return fn(*a)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a)
@@ -491,6 +519,8 @@ def drive(argv, callbacks=(), wrap=None) -> dict:
         programs[name] = timed(name, fn if wrap is None
                                else wrap(engine, name, fn))
 
+    if setup is not None:
+        setup(engine)
     reset_counts()
     hist = engine.run()
     launches = read_counts()
@@ -511,7 +541,8 @@ def drive(argv, callbacks=(), wrap=None) -> dict:
     check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(engine.W)),
           "non-finite final parameters")
     return {"engine": engine, "hist": hist, "launches": launches,
-            "ms": medians, "peak_bytes": peak, "n_syncs": hist.n_syncs}
+            "ms": medians, "calls": calls, "peak_bytes": peak,
+            "n_syncs": hist.n_syncs}
 
 
 def phase_main_path() -> dict:
@@ -549,6 +580,7 @@ def phase_main_path() -> dict:
     print(f"  s_k rel err kernel vs plain per sync={rels}")
     check(rels[-1] <= 1e-4, f"last sync S_k rel err {rels[-1]} > 1e-4")
     out.pop("engine")
+    out["trajectory"] = (hist.sync_steps, hist.losses, hist.s_k)
     return out
 
 
@@ -658,6 +690,513 @@ def phase_qsgd() -> dict:
     out["W"] = engine.W
     del engine
     return out
+
+
+# ------------------------------------------------------------------ phase 6
+def check_sync_launches(launches: dict, n_syncs: int) -> None:
+    """A periodic path on OLMo-1B: 29 mean_and_sqdev launches per sync
+    (one per leaf), no other kernel."""
+    want = dict(dict.fromkeys(KERNEL_NAMES, 0),
+                mean_and_sqdev=N_LEAVES * n_syncs)
+    check(launches == want, f"launches {launches} != {want}")
+
+
+def phase_clock(main_path: dict) -> dict:
+    """The telemetry clock on phase 3's path (OLMo-1B full width, 4
+    layers, R = 4, 16 ADPSGD steps), through the CLI's ``--net``.
+
+    (a) ``--net 10gbps``: sync steps, losses and S_k bit-identical to
+        phase 3's unclocked run; one Timeline record per program run;
+        sim_wall_s = 16 × 5 ms + Σ comm_s; bytes per ``all_mean`` =
+        ``all_mean_op().wire_bytes(371_458_048, 4, n_tensors=29)``.
+    (b) ``--net real``: the WallClock's records sum to no more than the
+        run's host wall time; the share they leave is printed (host work
+        between programs, the variance probe, the batches).
+    (c) ``--net real --wallclock-sample-every 4`` (programs not bracketed
+        by the script's synchronisations): ``n_blocks`` equals the
+        programs run on sampled steps, and each closed window's records
+        sum to the real time it spans.
+    Each run launches mean_and_sqdev 29 times per sync and nothing else."""
+    from repro_torch.backends.ops import all_mean_op
+
+    out = drive(MAIN_ARGV + ["--net", "10gbps"])
+    engine, hist = out.pop("engine"), out.pop("hist")
+    check_sync_launches(out["launches"], hist.n_syncs)
+    t = hist.timing
+    want_steps, want_losses, want_sk = main_path["trajectory"]
+    per_sync = (t["by_program"]["all_mean"]["bytes"]
+                / t["by_program"]["all_mean"]["calls"])
+    want_bytes = all_mean_op().wire_bytes(N_PARAMS, 4, n_tensors=N_LEAVES)
+    n_programs = sum(out["calls"].values())
+    print(f"  (a) 10gbps: sim_wall_s={t['sim_wall_s']!r} compute_s="
+          f"{t['compute_s']!r} comm_s={t['comm_s']!r} records="
+          f"{t['n_records']} programs={n_programs} bytes/all_mean="
+          f"{per_sync!r} (want {want_bytes!r}); identical to phase 3: "
+          f"sync_steps={hist.sync_steps == want_steps} "
+          f"losses={hist.losses == want_losses} s_k={hist.s_k == want_sk}")
+    check(hist.sync_steps == want_steps and hist.losses == want_losses
+          and hist.s_k == want_sk, "the clocked run differs from phase 3")
+    check(t["n_records"] == n_programs == len(engine.timeline.records),
+          f"{t['n_records']} records for {n_programs} programs")
+    check(math.isclose(t["sim_wall_s"], 16 * 5e-3 + t["comm_s"],
+                       rel_tol=1e-12), "sim_wall_s != 16 x 5 ms + comm_s")
+    check(per_sync == want_bytes, f"all_mean bytes {per_sync} != {want_bytes}")
+    sim = {"sim_wall_s": t["sim_wall_s"], "comm_s": t["comm_s"],
+           "bytes_per_all_mean": per_sync}
+    launches = out["launches"]
+    del engine, hist      # hist holds the final W and optimizer state
+    release()
+
+    out = drive(MAIN_ARGV + ["--net", "real"])
+    engine, hist = out.pop("engine"), out.pop("hist")
+    check_sync_launches(out["launches"], hist.n_syncs)
+    t = hist.timing
+    recs = engine.timeline.records
+    step_ms = statistics.median(r.compute_s * 1e3 for r in recs
+                                if r.name == "replica_step")
+    sync_ms = statistics.median(r.comm_s * 1e3 for r in recs
+                                if r.name == "all_mean")
+    uncovered = 1.0 - t["total_s"] / hist.wall_s
+    print(f"  (b) real: records sum {t['total_s']!r} s of host wall "
+          f"{hist.wall_s!r} s, uncovered share {uncovered!r}; WallClock "
+          f"median step {step_ms!r} ms, median sync {sync_ms!r} ms "
+          f"(card: {card_line()})")
+    check(t["total_s"] <= hist.wall_s, "WallClock records exceed the run")
+    check(engine.clock.n_blocks == len(recs), "a program was not waited for")
+    wall = {"step_ms": step_ms, "sync_ms": sync_ms, "wall_s": hist.wall_s,
+            "records_s": t["total_s"], "uncovered_share": uncovered}
+    launches = {k: launches[k] + out["launches"][k] for k in launches}
+    del engine, hist      # hist holds the final W and optimizer state
+    release()
+
+    windows = []
+
+    def check_windows(engine):
+        """Record (records' sum, elapsed) of every window a sample closes."""
+        clock = engine.clock
+        measure = clock.measure
+
+        def checked(name, fn, args, **kw):
+            window, mark = list(clock._window), clock._mark
+            res = measure(name, fn, args, **kw)
+            last = clock.timeline.last
+            if window and not last.interpolated:
+                got = sum(r.compute_s + r.comm_s for r, _ in window) \
+                    + last.compute_s + last.comm_s
+                windows.append((got, clock._mark - mark))
+            return res
+        clock.measure = checked
+
+    out = drive(MAIN_ARGV + ["--net", "real", "--wallclock-sample-every",
+                             "4"], setup=check_windows, time_programs=False)
+    engine, hist = out.pop("engine"), out.pop("hist")
+    check_sync_launches(out["launches"], hist.n_syncs)
+    recs = engine.timeline.records
+    on_sampled = sum(1 for r in recs if r.step % 4 == 0)
+    print(f"  (c) real, sampled every 4: n_blocks={engine.clock.n_blocks} "
+          f"programs on sampled steps={on_sampled} of {len(recs)}; windows "
+          f"(records, elapsed) s: {windows}")
+    check(engine.clock.n_blocks == on_sampled, "n_blocks != sampled programs")
+    check(all(r.interpolated == bool(r.step % 4) for r in recs),
+          "interpolated flags do not follow the sampled steps")
+    check(len(windows) == 3 and all(
+        math.isclose(a, b, rel_tol=1e-9) for a, b in windows),
+        "a window's records do not sum to its elapsed time")
+    check(hist.sync_steps == want_steps and hist.losses == want_losses,
+          "the sampled run differs from phase 3")
+    launches = {k: launches[k] + out["launches"][k] for k in launches}
+    del engine, hist      # hist holds the final W and optimizer state
+    release()
+    return {"launches": launches, "sim": sim, "wall": wall,
+            "windows": windows}
+
+
+# ------------------------------------------------------------------ phase 7
+def phase_strategies() -> dict:
+    """hier_adpsgd, dasgd and adacomm (time blocks) on phase 3's model,
+    16 steps each.
+
+    hier_adpsgd --inner-period 2 (groups of 2): after every inner sync
+    the replicas of each group are bit-identical on the embedding and two
+    more leaves; inner_sync_steps follow the controller's rule; 29
+    mean_and_sqdev launches per outer sync, none for the inner ones.
+    dasgd --p-const 4 (delay 2): each S_k is recorded at its snapshot
+    step, equals a plain recomputation from W taken at the end of that
+    step (rtol 1e-4), and its correction is applied exactly 2 steps
+    later; 29 launches per warm-up sync and per snapshot.
+    adacomm --adacomm-mode time --net 10gbps --adacomm-t0 2.0: the
+    schedule on the SimulatedClock; at every block boundary after the
+    calibration block the period is the controller's rule, recomputed
+    here from the block's losses; 29 launches per sync."""
+    import torch
+    from repro_torch.kernels.ref import mean_and_sqdev_ref
+    from repro_torch.runtime.engine import Callback
+    from repro_torch.tree import tree_leaves
+
+    results = {}
+    inner_checks = []
+
+    def hier_wrap(engine, name, fn):
+        if name != "inner_sync":
+            return fn
+
+        def inner(W, opt_state, batch, lr, key):
+            res = fn(W, opt_state, batch, lr, key)
+            leaves = tree_leaves(res[0])
+            embed = max(leaves, key=lambda x: x.numel())
+            same = all(torch.equal(x[0], x[1]) and torch.equal(x[2], x[3])
+                       for x in (embed, leaves[1], leaves[-1]))
+            apart = not torch.equal(embed[0], embed[2])
+            inner_checks.append((same, apart))
+            return res
+        return inner
+
+    out = drive(HIER_ARGV, wrap=hier_wrap)
+    engine, hist = out.pop("engine"), out.pop("hist")
+    rule, cnt = [], 0
+    for k in range(len(hist.losses)):
+        if k in hist.sync_steps:
+            cnt = 0
+        else:
+            cnt += 1
+            if cnt >= 2:
+                cnt = 0
+                rule.append(k)
+    print(f"  hier_adpsgd: inner_sync_steps={hist.inner_sync_steps} (rule "
+          f"{rule}); groups identical / apart after each inner sync: "
+          f"{inner_checks}")
+    check(hist.inner_sync_steps == rule and rule,
+          "inner syncs do not follow the controller's rule")
+    check(all(same and apart for same, apart in inner_checks),
+          "a group's replicas differ after an inner sync")
+    check_sync_launches(out["launches"], hist.n_syncs)
+    results["hier_adpsgd"] = {k: out[k] for k in ("launches", "ms", "calls")}
+    results["hier_adpsgd"]["inner_sync_steps"] = hist.inner_sync_steps
+    del engine, hist      # hist holds the final W and optimizer state
+    release()
+
+    class PlainAtSnapshot(Callback):
+        def __init__(self):
+            self.plain = {}
+
+        def on_iteration_end(self, engine, k, metrics):
+            if engine.strategy._snap_at == k:
+                with torch.no_grad():
+                    leaves = tree_leaves(engine.W)
+                    self.plain[k] = float(
+                        sum(mean_and_sqdev_ref(x)[1] for x in leaves)
+                        / leaves[0].shape[0])
+
+    acts = {}
+
+    def record_actions(engine):
+        actions = engine.strategy.actions
+
+        def spy(k):
+            acts[k] = actions(k)
+            return acts[k]
+        engine.strategy.actions = spy
+
+    probe = PlainAtSnapshot()
+    out = drive(DASGD_ARGV, callbacks=[probe], setup=record_actions)
+    engine, hist = out.pop("engine"), out.pop("hist")
+    snaps = [k for k, a in acts.items() if "sync" in a]
+    applies = [k for k, a in acts.items() if "sync_apply" in a]
+    at = dict(zip(hist.sync_steps, hist.s_k))
+    rels = [abs(at[k] - probe.plain[k]) / probe.plain[k] for k in snaps]
+    print(f"  dasgd: sync_steps={hist.sync_steps} snapshots={snaps} "
+          f"applies={applies}; fetched S_k vs plain at the snapshot step "
+          f"rel={rels}")
+    check(len(snaps) >= 3 and applies == [k + 2 for k in snaps],
+          "corrections not applied 2 steps after their snapshots")
+    check(set(snaps) <= set(hist.sync_steps), "S_k not at its snapshot step")
+    check(all(r <= 1e-4 for r in rels), "fetched S_k differs from plain")
+    check_sync_launches(out["launches"], hist.n_syncs)
+    results["dasgd"] = {k: out[k] for k in ("launches", "ms", "calls")}
+    results["dasgd"]["s_k_rel"] = rels
+    del engine, hist      # hist holds the final W and optimizer state
+    release()
+
+    blocks = []
+
+    def record_blocks(engine):
+        ctl = engine.strategy.controller
+        observe = ctl.observe_loss
+
+        def spy(k, loss):
+            f0, n = ctl.f0, ctl._loss_n
+            observe(k, loss)
+            if ctl._loss_n == 0:                    # the block closed at k
+                blocks.append((k, n + 1, f0, ctl.f0, ctl.tau))
+        ctl.observe_loss = spy
+
+    out = drive(ADACOMM_ARGV, setup=record_blocks)
+    engine, hist = out.pop("engine"), out.pop("hist")
+    t = hist.timing
+    print(f"  adacomm (time, 10gbps, t0 2.0 s): sync_steps={hist.sync_steps} "
+          f"periods={hist.period_history} sim_wall_s={t['sim_wall_s']!r}")
+    check(hist.n_syncs >= 3 and t["clock"] == "sim", "adacomm did not run")
+    ctl = engine.strategy.controller
+    ratios = []
+    for k, n, f0_before, f0, tau in blocks:
+        total = 0.0
+        for v in hist.losses[k + 1 - n:k + 1]:
+            total += v
+        f = total / n
+        if f0_before is None:
+            check(f0 == f, f"calibration block F0 {f0!r} != {f!r}")
+            continue
+        ratio = (ctl.tau0 * math.sqrt(max(f, 0.0) / f0)
+                 / math.sqrt(max(1.0, engine.clock.straggler_factor())))
+        want = min(max(math.ceil(ratio), ctl.cfg.p_min), ctl.cfg.p_max)
+        ratios.append(ratio)
+        check(tau == want, f"block ending at {k}: tau {tau} != {want}")
+    print(f"  adacomm blocks (end step, steps): "
+          f"{[(k, n) for k, n, *_ in blocks]}; tau0*sqrt(F/F0) after "
+          f"calibration: {ratios}")
+    check(ratios, "no block closed after the calibration block")
+    check_sync_launches(out["launches"], hist.n_syncs)
+    results["adacomm"] = {k: out[k] for k in ("launches", "ms", "calls")}
+    results["adacomm"]["periods"] = hist.period_history
+    del engine, hist      # hist holds the final W and optimizer state
+    release()
+    return results
+
+
+# ------------------------------------------------------------------ phase 8
+def cnn_plain_s_k(strategy, W, key) -> float:
+    """The plain route's S_k of the sync about to run on W: the plain
+    mean_and_sqdev summed over the leaves, or, for qsgd_periodic's
+    quantized sync, the plain backend's exchange on copies of W, the
+    anchor and the key (phase 3b's comparison)."""
+    import torch
+    from repro_torch.backends import VmapBackend
+    from repro_torch.kernels.ref import mean_and_sqdev_ref
+    from repro_torch.tree import tree_leaves, tree_map
+
+    leaves = tree_leaves(W)
+    anchor = getattr(strategy, "_anchor", None)
+    with torch.no_grad():
+        if anchor is None:
+            return float(sum(mean_and_sqdev_ref(x)[1] for x in leaves)
+                         / leaves[0].shape[0])
+        plain = VmapBackend(use_kernel=False, device=leaves[0].device)
+        return float(plain.quantized_all_mean(strategy.cfg.qsgd_bits)(
+            tree_map(torch.clone, W), tree_map(torch.clone, anchor), key)[2])
+
+
+def cnn_run(name: str, net: str, params0, data) -> tuple:
+    """One of ``benchmarks/common.py``'s runs, built from the port's
+    modules: R = 8, batch 16, 60 steps, momentum, lr 0.05 decayed at 30
+    and 45, warm-up 4, p_init 4, p_const 8, decreasing (20, 5),
+    inner_period 2, track_variance_every 2, SimulatedClock at 5 ms per
+    step.  Every sync's S_k is held against the plain route's on the W
+    it synced (rtol 1e-4, as phase 3).  Returns (timed columns, launches,
+    history, timeline)."""
+    from repro_torch.configs import AveragingConfig
+    from repro_torch.models.cnn import cnn_loss
+    from repro_torch.optim import get_optimizer, make_lr_schedule
+    from repro_torch.runtime.clock import SimulatedClock
+    from repro_torch.runtime.engine import TrainerEngine
+
+    steps = CNN_STEPS
+    cfg = AveragingConfig(
+        method=name, p_init=4, p_const=8, k_sample_frac=0.25,
+        warmup_full_sync_steps=4, decreasing_p0=20, decreasing_p1=5,
+        inner_period=2)
+    engine = TrainerEngine(
+        loss_fn=cnn_loss, optimizer=get_optimizer("momentum"),
+        params0=params0, n_replicas=CNN_R,
+        data_fn=data.batches(n_replicas=CNN_R, per_replica_batch=16,
+                             device=DEVICE),
+        lr_fn=make_lr_schedule("step", 0.05, steps,
+                               decay_steps=(steps // 2, 3 * steps // 4)),
+        avg_cfg=cfg, total_steps=steps,
+        clock=SimulatedClock(net, step_compute_s=5e-3),
+        track_variance_every=2, device=DEVICE)
+    plain = []
+    programs = engine.strategy.programs
+    for prog in ("sync", "full_sync"):
+        if prog in programs:
+            def probed(W, opt_state, batch, lr, key, fn=programs[prog]):
+                plain.append(cnn_plain_s_k(engine.strategy, W, key))
+                return fn(W, opt_state, batch, lr, key)
+            programs[prog] = probed
+    reset_counts()
+    hist = engine.run()
+    launches = read_counts()
+    # a DaSGD snapshot still in flight at the end is never fetched
+    check(len(plain) - len(hist.s_k) in ((0, 1) if name == "dasgd" else (0,)),
+          f"{name}/{net}: {len(plain)} syncs probed, {len(hist.s_k)} S_k")
+    rels = [abs(a - b) / abs(b) if b else abs(a)
+            for a, b in zip(hist.s_k, plain)]
+    worst = max(rels, default=0.0)
+    check(worst <= 1e-4, f"{name}/{net}: S_k differs from plain, max rel "
+                         f"{worst}")
+    t = hist.timing
+    cols = {
+        "sim_wall_s": round(t["sim_wall_s"], 6),
+        "sim_compute_s": round(t["compute_s"], 6),
+        "sim_comm_s": round(t["comm_s"], 6),
+        "comm_bytes_per_node": round(t["bytes"], 1),
+        "wire_bytes": {p: round(v["bytes"] / v["calls"], 1)
+                       for p, v in sorted(t["by_program"].items())
+                       if v["bytes"]},
+        "n_syncs": hist.n_syncs,
+        "final_loss": round(float(statistics.fmean(hist.losses[-8:])), 4),
+        "s_k_max_rel": worst,
+    }
+    return cols, launches, hist, engine.timeline
+
+
+def cnn_card_vs_cpu(params, batch) -> float:
+    """cnn_loss and its gradients on the card (cuDNN convolutions on
+    permuted channels-last views, TF32 off) against the port's CPU route,
+    which the tests hold against the reference, on the same parameters
+    and batch.  Loss rtol 1e-5; each leaf's gradient within 1e-4 of its
+    largest CPU value (f32 sums over up to 16 x 32 x 32 terms in another
+    order).  Returns the largest gradient error relative to its leaf."""
+    from repro_torch.core.averaging import value_and_grad
+    from repro_torch.models.cnn import cnn_loss
+    from repro_torch.tree import tree_leaves, tree_map
+
+    loss, _, grads = value_and_grad(cnn_loss, params, batch)
+    cpu = tree_map(lambda x: x.detach().cpu(), params)
+    loss_c, _, grads_c = value_and_grad(
+        cnn_loss, cpu, {k: v.cpu() for k, v in batch.items()})
+    loss_rel = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    rels = [float((g.cpu() - gc_).abs().max() / gc_.abs().max())
+            for g, gc_ in zip(tree_leaves(grads), tree_leaves(grads_c))]
+    print(f"    loss card={float(loss)!r} cpu={float(loss_c)!r} "
+          f"rel={loss_rel:.3e}; grad max err / leaf max per leaf="
+          f"{[f'{r:.2e}' for r in rels]}")
+    check(loss_rel <= 1e-5, f"CNN loss on the card: rel {loss_rel}")
+    check(max(rels) <= 1e-4, f"CNN gradients on the card: rel {max(rels)}")
+    return max(rels)
+
+
+def cnn_launches_expected(name: str, by_program: dict) -> dict:
+    """mean_and_sqdev once per leaf of every all_mean, mean_delta and
+    quantized_all_mean; QSGD's kernels per quantized exchange (sqnorm once
+    per leaf over its replicas, quantize / dequantize per leaf and
+    replica) and per qsgd step (sqnorm once per replica)."""
+    calls = {p: v["calls"] for p, v in by_program.items()}
+    syncs = sum(calls.get(p, 0) for p in
+                ("all_mean", "mean_delta", "quantized_all_mean"))
+    q = calls.get("quantized_all_mean", 0)
+    s = calls.get("qsgd_step", 0)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["mean_and_sqdev"] = CNN_LEAVES * syncs
+    want["sqnorm"] = CNN_LEAVES * q + CNN_R * s
+    want["quantize"] = want["dequantize"] = CNN_LEAVES * CNN_R * (q + s)
+    return want
+
+
+def phase_cnn() -> dict:
+    """The paper's CNN experiment: all nine strategies at 10 and 100 Gbps
+    beside ``BENCH_engine.json``'s ``timed`` columns.  The five whose
+    schedule depends on neither losses nor S_k (fullsgd, cpsgd,
+    decreasing, dasgd, qsgd) must equal the recorded columns at the
+    JSON's rounding (final_loss aside); ADPSGD's speedup over FULLSGD
+    must be larger at 10 Gbps than at 100 Gbps, and above 1 at both.
+    The parameters start from the reference's init (``init_cnn(0)``
+    draws jax's normals to a few ulps); the adaptive four are printed,
+    not checked.  Every sync runs mean_sqdev.cu, the QSGD pair
+    qsgd_quant.cu; launches are checked per strategy and every S_k
+    against the plain route.  The loss and gradients on the card are held
+    against the CPU route at the init and at FULLSGD's final replica 0.
+    FULLSGD from three more seeds shows how the setting's step-1
+    overshoot ends (printed)."""
+    from repro_torch.data.pipeline import SyntheticImages
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.strategies import available_strategies
+    from repro_torch.tree import tree_leaves, tree_map
+
+    recorded = json.loads((ROOT / "BENCH_engine.json").read_text())
+    check(recorded["config"] == {"base_lr": 0.05, "n_replicas": CNN_R,
+                                 "per_replica_batch": 16,
+                                 "sim_step_compute_s": 0.005,
+                                 "steps": CNN_STEPS},
+          f"BENCH_engine.json config {recorded['config']}")
+    data = SyntheticImages(n_samples=2048, seed=0)
+    params0 = init_cnn(0, widths=(16, 32), device=DEVICE)
+    n_params = sum(x.numel() for x in tree_leaves(params0))
+    print(f"  CNN widths (16, 32): params={n_params} "
+          f"leaves={len(tree_leaves(params0))} R={CNN_R} steps={CNN_STEPS}")
+    check(n_params == 532_202 and len(tree_leaves(params0)) == CNN_LEAVES,
+          "CNN size")
+    batches = data.batches(n_replicas=CNN_R, per_replica_batch=16,
+                           device=DEVICE)
+    print("  card vs CPU route at the init, batch of step 0:")
+    grad_rel = cnn_card_vs_cpu(
+        params0, {k: v[0] for k, v in batches(0).items()})
+    names = available_strategies()
+    check(sorted(names) == sorted(recorded["strategies"]),
+          "strategies differ from BENCH_engine.json's")
+    table, launches_all, wall = {}, dict.fromkeys(KERNEL_NAMES, 0), {}
+    for net in ("10gbps", "100gbps"):
+        cols = {}
+        for name in names:
+            t0 = time.perf_counter()
+            c, launches, hist, tl = cnn_run(name, net, params0, data)
+            wall[(name, net)] = time.perf_counter() - t0
+            want = cnn_launches_expected(name, tl.by_program)
+            check(launches == want,
+                  f"{name}/{net} launches {launches} != {want}")
+            check(all(math.isfinite(x) for x in hist.losses),
+                  f"{name}/{net}: non-finite loss")
+            c["launches"] = launches
+            cols[name] = c
+            for k in KERNEL_NAMES:
+                launches_all[k] += launches[k]
+            if name == "fullsgd" and net == "10gbps":
+                print("  card vs CPU route at FULLSGD's final replica 0, "
+                      f"batch of step {CNN_STEPS - 1}:")
+                grad_rel = max(grad_rel, cnn_card_vs_cpu(
+                    tree_map(lambda x: x[0], hist.final_W),
+                    {k: v[0] for k, v in batches(CNN_STEPS - 1).items()}))
+                c["step1_loss"] = hist.losses[1]
+            del hist
+        full = cols["fullsgd"]["sim_wall_s"]
+        for c in cols.values():
+            c["speedup_vs_fullsgd"] = round(full / c["sim_wall_s"], 4)
+        table[net] = cols
+    keys = ("n_syncs", "sim_comm_s", "sim_wall_s", "comm_bytes_per_node",
+            "wire_bytes", "speedup_vs_fullsgd")
+    for net in ("10gbps", "100gbps"):
+        print(f"  {net}: strategy: port | recorded "
+              f"({', '.join(keys)}, final_loss), launches, host s")
+        for name in sorted(names):
+            got, rec = table[net][name], recorded["strategies"][name]["timed"][net]
+            print(f"    {name}: {[got[k] for k in keys]} {got['final_loss']}"
+                  f" | {[rec[k] for k in keys]} {rec['final_loss']}  "
+                  f"{got['launches']} {wall[(name, net)]:.3f} S_k max rel "
+                  f"{got['s_k_max_rel']:.2e}")
+    for name in ("fullsgd", "cpsgd", "decreasing", "dasgd", "qsgd"):
+        for net in ("10gbps", "100gbps"):
+            got, rec = table[net][name], recorded["strategies"][name]["timed"][net]
+            diff = [k for k in keys + ("sim_compute_s",) if got[k] != rec[k]]
+            check(not diff, f"{name}/{net} differs from BENCH_engine.json "
+                            f"in {diff}")
+    s10 = table["10gbps"]["adpsgd"]["speedup_vs_fullsgd"]
+    s100 = table["100gbps"]["adpsgd"]["speedup_vs_fullsgd"]
+    print(f"  ADPSGD speedup over FULLSGD: 10gbps {s10} > 100gbps {s100} "
+          f"> 1: {s10 > s100 > 1}")
+    check(s10 > s100 > 1, "ADPSGD's speedup does not grow as the link slows")
+    sweep = {0: (table["10gbps"]["fullsgd"]["step1_loss"],
+                 table["10gbps"]["fullsgd"]["final_loss"])}
+    for seed in (1, 2, 3):
+        c, _, hist, _ = cnn_run("fullsgd", "10gbps",
+                                init_cnn(seed, widths=(16, 32),
+                                         device=DEVICE), data)
+        sweep[seed] = (hist.losses[1], c["final_loss"])
+        del hist
+    print("  FULLSGD at lr 0.05 by init seed: (step-1 loss, final loss) "
+          + json.dumps(sweep))
+    release()
+    return {"launches": launches_all, "table": table, "seed_sweep": sweep,
+            "grad_rel": grad_rel,
+            "host_s": {f"{n}/{net}": v for (n, net), v in wall.items()}}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1050,8 +1589,19 @@ def main() -> int:
     print("phase 5: serving, OLMo-1B full width, 16 layers")
     serving = phase_serving()
 
-    paths = {"adpsgd": main_path, "qsgd_periodic": qp, "qsgd": qs,
-             "serving": serving}
+    print(f"phase 6: the telemetry clock, OLMo-1B full width, 4 layers, R=4"
+          f"  card: {card}")
+    clock = phase_clock(main_path)
+    print("phase 7: hier_adpsgd, dasgd, adacomm (time blocks), OLMo-1B full "
+          "width, 4 layers, R=4")
+    strategies = phase_strategies()
+    print(f"phase 8: the paper's CNN experiment, 9 strategies x 10 / 100 "
+          f"Gbps  card: {card}")
+    cnn = phase_cnn()
+
+    training = {"adpsgd": main_path, "qsgd_periodic": qp, "qsgd": qs}
+    paths = dict(training, serving=serving, clock=clock, **strategies,
+                 cnn=cnn)
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in KERNEL_NAMES}
     print("launches by path: " + json.dumps(
@@ -1089,7 +1639,7 @@ def main() -> int:
         "library_ms": row["library_ms"]})
     print("summary: " + json.dumps({
         name: {k: p[k] for k in ("ms", "peak_bytes", "n_syncs")}
-        for name, p in paths.items() if name != "serving"}))
+        for name, p in training.items()}))
     print(f"summary: mean_and_sqdev embed={timing['embed']} "
           f"uniform_ms_per_exchange={qtiming['uniform_ms']} "
           f"qsgd_periodic last-sync s_k_rel={qp['s_k_rel']} "
@@ -1097,6 +1647,11 @@ def main() -> int:
     print("summary: serving " + json.dumps(
         {k: v for k, v in serving.items() if k != "launches"})
           + f" flash prefill_32k={ftiming['prefill_32k']}")
+    print("summary: clock " + json.dumps(
+        {k: clock[k] for k in ("sim", "wall")}))
+    print("summary: strategies " + json.dumps(
+        {name: {k: v for k, v in p.items() if k != "launches"}
+         for name, p in strategies.items()}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

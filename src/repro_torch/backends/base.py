@@ -7,10 +7,11 @@ and ask the backend to lower them:
 
     program = backend.lower(op, loss_fn=..., optimizer=...)
 
-``op.name`` resolves to the backend's ``_lower_<name>`` method.  The
-telemetry clocks of the reference (``runtime/clock.py``) are not ported
-yet, so ``timed`` hands programs back unwrapped and ``set_clock`` accepts
-only None.
+``op.name`` resolves to the backend's ``_lower_<name>`` method, and the
+program comes back wrapped by ``timed``: with a telemetry clock bound
+(``set_clock``, ``runtime/clock.py``) each invocation is priced from the
+descriptor itself (``op.wire_bytes``) into the clock's Timeline.  Ops with
+``overlap=True`` return an ``InFlightOp`` fetched later (DaSGD).
 
 Every backend has a device, resolved at construction: the card unless the
 caller passes ``device="cpu"`` (without CUDA, the default raises).
@@ -19,11 +20,13 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Type
 
+import torch
+
 from repro_torch.backends import ops as collective_ops
-from repro_torch.backends.ops import CollectiveOp
+from repro_torch.backends.ops import CollectiveOp, InFlightOp
 from repro_torch.core import averaging as avg
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 Pytree = Any
 
@@ -46,6 +49,7 @@ class ExecutionBackend:
         self.use_kernel = use_kernel
         self.device = resolve_device(device)
         self.n_replicas: Optional[int] = None
+        self.clock = None              # telemetry clock (runtime/clock.py)
 
     def bind(self, n_replicas: int) -> None:
         self.n_replicas = int(n_replicas)
@@ -56,14 +60,42 @@ class ExecutionBackend:
 
     # ------------------------------------------------------------ telemetry
     def set_clock(self, clock) -> None:
-        if clock is not None:
-            raise NotImplementedError(
-                "telemetry clocks (runtime/clock.py) are not ported yet")
+        """Bind a ``runtime/clock.py`` Clock (None unbinds).  The ``timed``
+        wrappers read ``self.clock`` at call time, so binding before or
+        after lowering both work."""
+        self.clock = clock
 
     def timed(self, op: CollectiveOp, fn: Callable) -> Callable:
-        """The hook where a bound clock will price each invocation from
-        ``op``; with no clock the program runs as built."""
-        return fn
+        """Wrap a program so each invocation reports one ``(compute_s,
+        comm_s, bytes)`` record into the bound clock's Timeline.  Bytes
+        are ``op.wire_bytes`` of the per-replica parameter count, read off
+        the stacked first operand per call; the collective kind and group
+        ride the op; ``overlap=True`` ops return an ``InFlightOp``."""
+
+        def wrapped(*args):
+            clock = self.clock
+            if clock is None:
+                out = fn(*args)
+                return InFlightOp(op, out) if op.overlap else out
+            n = self.n_replicas or 1
+            nbytes = 0.0
+            if op.collective is not None:
+                if op.group:
+                    n = int(op.group)
+                leaves = tree_leaves(args[0])
+                n_params = (sum(x.numel() for x in leaves)
+                            // max(1, self.n_replicas or 1))
+                nbytes = op.wire_bytes(n_params, n, n_tensors=len(leaves))
+            if op.overlap:
+                out, rec = clock.dispatch_async(
+                    op.name, fn, args, comm_bytes=nbytes,
+                    collective=op.collective, n_nodes=n)
+                return InFlightOp(op, out, clock, rec)
+            return clock.measure(op.name, fn, args, is_step=op.is_step,
+                                 comm_bytes=nbytes, collective=op.collective,
+                                 n_nodes=n)
+
+        return wrapped
 
     # ------------------------------------------------------------- lowering
     def lower(self, op: CollectiveOp, **kw) -> Callable:
@@ -91,6 +123,22 @@ class ExecutionBackend:
         dequantized at the receiver, averaged and re-applied."""
         return self.lower(collective_ops.quantized_all_mean_op(bits))
 
+    def inner_mean(self, group_size: int) -> Callable:
+        """(W) -> W averaged within contiguous replica groups of
+        ``group_size`` (hierarchical in-pod sync), in place."""
+        return self.lower(collective_ops.inner_mean_op(group_size))
+
+    def mean_delta(self, *, overlap: bool = False) -> Callable:
+        """(W) -> (delta, s_k) with ``delta_i = mean(W) − W_i`` (stacked,
+        f32): the correction DaSGD applies ``delay`` steps later.  With
+        ``overlap=True`` the call returns an ``InFlightOp``."""
+        return self.lower(collective_ops.mean_delta_op(overlap=overlap))
+
+    def apply_delta(self) -> Callable:
+        """(W, delta) -> W + delta, in place (no collective: it happened
+        in ``mean_delta``)."""
+        return self.lower(collective_ops.apply_delta_op())
+
     # ------------------------------------------------------------ placement
     def put_params(self, W: Pytree) -> Pytree:
         return tree_map(lambda x: x.to(self.device), W)
@@ -110,6 +158,28 @@ class ExecutionBackend:
     def collapse(self, W: Pytree) -> Pytree:
         """Replica mean without the probe (anchor seeding)."""
         return avg.replica_mean(W)
+
+    def default_group_size(self) -> Optional[int]:
+        """Topology-derived hierarchical group size, or None when the
+        backend has no natural group boundary (one device): the
+        hierarchical strategy then uses its config or half the replicas."""
+        return None
+
+    def _lower_apply_delta(self, op: CollectiveOp):
+        """Elementwise add, shared by every backend, in place: the fetched
+        delta (f32) is added into W's leaves, so the overlap window holds
+        no third parameter-sized buffer."""
+
+        @torch.no_grad()
+        def apply(W, delta):
+            for w, d in zip(tree_leaves(W), tree_leaves(delta)):
+                if w.dtype == torch.float32:
+                    w.add_(d)
+                else:
+                    w.copy_((w.to(torch.float32) + d).to(w.dtype))
+            return W
+
+        return apply
 
 
 _BACKENDS: Dict[str, Type[ExecutionBackend]] = {}

@@ -1,13 +1,13 @@
 """CollectiveOp IR — the declarative communication layer (port of
-``repro/backends/ops.py``; the hierarchical and DaSGD ops and the
-``InFlightOp`` handle come with the strategies that emit them).
+``repro/backends/ops.py``).
 
 A ``CollectiveOp`` names one backend program: the collective kind, the wire
 format of its payload, the participating group and whether it may overlap
 compute.  Strategies emit descriptors, backends lower them
 (``ExecutionBackend.lower``), and pricing reads the same descriptor
 (``op.wire_bytes``), so the bytes an accounting path reports are the bytes
-of the program that ran.
+of the program that ran.  An ``overlap=True`` op returns an ``InFlightOp``
+whose results the caller fetches later (DaSGD's delayed correction).
 """
 from __future__ import annotations
 
@@ -97,3 +97,43 @@ def quantized_all_mean_op(bits: int) -> CollectiveOp:
     ~bits/32 of the f32 volume plus the norm side-channel."""
     return CollectiveOp("quantized_all_mean", "gather_bcast",
                         wire=qsgd_wire(bits))
+
+
+def inner_mean_op(group_size: int) -> CollectiveOp:
+    """Hierarchical in-group partial average: a ring within one group of
+    ``group_size`` replicas, priced on the group and the in-pod link."""
+    return CollectiveOp("inner_mean", "inner_mean", group=int(group_size))
+
+
+def mean_delta_op(*, overlap: bool = False) -> CollectiveOp:
+    """DaSGD correction snapshot ``w̄ − w_i`` (the pair's only collective).
+    ``overlap=True`` returns an ``InFlightOp``, fetched ``delay`` steps
+    later."""
+    return CollectiveOp("mean_delta", "all_reduce", overlap=overlap)
+
+
+def apply_delta_op() -> CollectiveOp:
+    """Collective-free elementwise add of a previously fetched delta."""
+    return CollectiveOp("apply_delta", None)
+
+
+class InFlightOp:
+    """A dispatched ``overlap=True`` collective whose results have not been
+    fetched.  Its work is queued on the same CUDA stream as the steps, so
+    it reads W before the next step writes it; ``fetch()`` returns the
+    outputs and settles the exchange with the bound clock exactly once."""
+
+    def __init__(self, op: CollectiveOp, outputs, clock=None, record=None):
+        self.op = op
+        self._outputs = outputs
+        self._clock = clock
+        self._record = record
+        self.fetched = False
+
+    def fetch(self):
+        if not self.fetched:
+            self.fetched = True
+            if self._clock is not None:
+                self._clock.complete_async(self.op.name, self._record,
+                                           self._outputs)
+        return self._outputs

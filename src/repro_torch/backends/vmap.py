@@ -16,7 +16,7 @@ from repro_torch.core import prng
 from repro_torch.core import qsgd as qsgd_mod
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 @register_backend
@@ -49,8 +49,38 @@ class VmapBackend(ExecutionBackend):
                                      use_kernel=self.kernel_on(W))
         return all_mean
 
+    def _lower_inner_mean(self, op):
+        g = op.group
+        return lambda W: avg.group_sync(W, g)
+
     def _lower_opt_mean(self, op):
         return avg.sync_opt_state
+
+    def _lower_mean_delta(self, op):
+        """DaSGD's snapshot: per leaf the replica mean and Σ_i ||mean −
+        w_i||² (the fused kernel when it is on, as in ``all_mean``), then
+        ``delta = mean − w_i`` in a second pass into an f32 buffer.  W is
+        only read; the work is queued on W's stream, so it sees W before
+        the next step writes it.  Returns (delta tree, S_k), S_k left on
+        the device."""
+
+        @torch.no_grad()
+        def mean_delta(W):
+            kernel = self.kernel_on(W)
+            leaves = tree_leaves(W)
+            R = leaves[0].shape[0]
+            deltas, sks = [], []
+            for x in leaves:
+                xf = x.to(torch.float32)
+                if kernel:
+                    mean, sk = kops.param_mean_and_sqdev(xf)
+                else:
+                    mean, sk = kref.mean_and_sqdev_ref(xf)
+                deltas.append(mean.unsqueeze(0) - xf)
+                sks.append(sk)
+            return tree_unflatten(W, deltas), sum(sks) / R
+
+        return mean_delta
 
     def _lower_qsgd_step(self, op, *, loss_fn, optimizer):
         return qsgd_mod.make_qsgd_step(loss_fn, optimizer, op.wire.bits,

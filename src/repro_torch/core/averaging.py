@@ -143,6 +143,19 @@ def sync_replicas(W: Pytree, opt_state: Optional[Pytree] = None, *,
 
 
 @torch.no_grad()
+def group_sync(W: Pytree, group_size: int) -> Pytree:
+    """Hierarchical (beyond-paper): average only within contiguous groups
+    of ``group_size`` replicas (one pod), in place: each leaf is viewed as
+    (R // g, g, ...), meaned over the group axis in f32 and written back.
+    Cross-group averaging is left to the outer adaptive schedule."""
+    for x in tree_leaves(W):
+        g = x.view(x.shape[0] // group_size, group_size, *x.shape[1:])
+        m = g.to(torch.float32).mean(dim=1, keepdim=True)
+        g.copy_(m.expand_as(g))
+    return W
+
+
+@torch.no_grad()
 def sync_opt_state(opt_state: Pytree) -> Pytree:
     """Average the optimizer state across replicas, in place (beyond-paper
     knob)."""

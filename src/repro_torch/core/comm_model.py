@@ -1,6 +1,6 @@
-"""Analytic communication model (port of the strategy-facing part of
-``repro/core/comm_model.py``): the paper's ring all-reduce accounting
-(16 nodes, 100 vs 10 Gbps).  A ring all-reduce of D bytes moves
+"""Analytic communication model (port of ``repro/core/comm_model.py``
+without its TPU roofline constants): the paper's ring all-reduce
+accounting (16 nodes, 100 vs 10 Gbps).  A ring all-reduce of D bytes moves
 2·(n−1)/n·D per node."""
 from __future__ import annotations
 
@@ -43,3 +43,39 @@ def comm_time(bytes_per_event: float, n_events: int, n_nodes: int,
                          f"available: {sorted(COLLECTIVE_HOPS)}")
     lat = latency_s * COLLECTIVE_HOPS[collective](n_nodes)
     return n_events * (bytes_per_event / bandwidth + lat)
+
+
+def method_comm(method: str, n_params: int, n_nodes: int, total_steps: int,
+                n_syncs: int, bandwidth: float, qsgd_bits: int = 8) -> CommStats:
+    """Total communication of a training run, per node, for the paper's
+    methods (``strategies.comm_stats_for`` covers every strategy)."""
+    coll = "all_reduce"
+    if method in ("fullsgd",):
+        per = ring_allreduce_bytes(n_params, n_nodes)
+        ev = total_steps
+    elif method in ("cpsgd", "adpsgd", "decreasing"):
+        per = ring_allreduce_bytes(n_params, n_nodes)
+        ev = n_syncs
+    elif method == "qsgd":
+        # 8-bit levels, norms neglected; gather + broadcast, latency kept
+        per = ring_allreduce_bytes(n_params, n_nodes) * qsgd_bits / 32.0
+        ev = total_steps
+        coll = "gather_bcast"
+    else:
+        raise ValueError(method)
+    return CommStats(per, ev, comm_time(per, ev, n_nodes, bandwidth,
+                                        collective=coll))
+
+
+def speedup_vs_fullsgd(method: str, n_params: int, n_nodes: int,
+                       total_steps: int, n_syncs: int, step_compute_s: float,
+                       bandwidth: float) -> float:
+    """Modeled wall-clock speedup of ``method`` over FULLSGD (paper Fig
+    4c)."""
+    full = method_comm("fullsgd", n_params, n_nodes, total_steps,
+                       total_steps, bandwidth)
+    this = method_comm(method, n_params, n_nodes, total_steps, n_syncs,
+                       bandwidth)
+    t_full = total_steps * step_compute_s + full.time_s
+    t_this = total_steps * step_compute_s + this.time_s
+    return t_full / t_this

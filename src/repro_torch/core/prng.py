@@ -13,6 +13,12 @@ this module reproduces the four functions the reference uses:
   counter pair (i >> 32, i & 0xFFFFFFFF); its 32 bits are x0 ^ x1, and the
   float is ``bitcast((bits >> 9) | 0x3F800000) − 1``.
 
+and ``normal(key, shape)`` — ``jax.random.normal``, for the CNN's initial
+parameters: uniforms on (−1, 1) bit for bit, then XLA's single-precision
+``erf_inv``.  Its ``log1p`` rounds differently from XLA's, so a few
+per cent of the values differ from jax's by up to three f32 ulps
+(relative 2.4e-7 at most in the tests).
+
 A key is a pair of Python ints, worked on the host.  Only the per-element
 bits of ``uniform`` are computed on the device, in int64 tensors masked to
 32 bits (torch's uint32 has no shifts or xor on CUDA).  ``threefry2x32``
@@ -83,3 +89,36 @@ def uniform(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
     del b0, b1
     return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(
         tuple(shape))
+
+
+# XLA's single-precision erf_inv, the one jax.random.normal uses: M.
+# Giles, "Approximating the erfinv function" (GPU Computing Gems, 2011),
+# a degree-8 polynomial in w = -log1p(-x^2), shifted by 2.5 below w = 5
+# and in sqrt(w) - 3 above
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv(x: torch.Tensor) -> torch.Tensor:
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, a, b) + p * w
+    return p * x
+
+
+def normal(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """f32 standard normals of ``shape`` on ``device``, as
+    ``jax.random.normal(key, shape)`` draws them: sqrt(2)·erf_inv(u) with
+    u uniform on [lo, 1), lo the f32 just above −1, scaled from
+    ``uniform(key, shape)`` as jax scales it (the span 1 − lo rounds to 2
+    in f32)."""
+    lo = -1.0 + 2.0 ** -24
+    u = torch.clamp_min(uniform(key, shape, device=device) * 2.0 + lo, lo)
+    return _erfinv(u) * math.sqrt(2.0)

@@ -1,11 +1,11 @@
-"""Deterministic synthetic data (port of the token part of
-``repro/data/pipeline.py``).
+"""Deterministic synthetic data (port of ``repro/data/pipeline.py``).
 
 The arrays come from ``numpy.random.RandomState`` exactly as in the
 reference, so batches are bit-identical; only the last step differs — each
 batch is handed over as torch tensors on the requested device.  A fixed
 dataset, globally shuffled each epoch, then sharded across replicas (paper
-§IV-A).  ``SyntheticImages`` comes with the CNN model.
+§IV-A).  ``SyntheticImages`` hands over NHWC images, as the reference
+does; ``models/cnn.py`` permutes them to NCHW inside the forward pass.
 """
 from __future__ import annotations
 
@@ -15,6 +15,35 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+
+
+class SyntheticImages:
+    """CIFAR-10-shaped classification data: class prototypes + noise.
+    Stands in for the paper's CIFAR-10 experiments."""
+
+    def __init__(self, n_samples: int = 4096, n_classes: int = 10,
+                 noise: float = 0.6, seed: int = 0):
+        rng = np.random.RandomState(seed)
+        self.protos = rng.randn(n_classes, 32, 32, 3).astype(np.float32)
+        self.labels = rng.randint(0, n_classes, size=n_samples).astype(np.int32)
+        self.images = (self.protos[self.labels]
+                       + noise * rng.randn(n_samples, 32, 32, 3)).astype(np.float32)
+        self.n = n_samples
+        self.seed = seed
+
+    def batches(self, *, n_replicas: int, per_replica_batch: int,
+                device: DeviceLike = None) -> "EpochSharder":
+        return EpochSharder({"images": self.images, "labels": self.labels},
+                            self.n, n_replicas, per_replica_batch, self.seed,
+                            device=device)
+
+    def eval_batches(self, batch: int = 256, device: DeviceLike = None):
+        device = resolve_device(device)
+        for i in range(0, self.n, batch):
+            yield {"images": torch.from_numpy(
+                       self.images[i:i + batch]).to(device),
+                   "labels": torch.from_numpy(
+                       self.labels[i:i + batch]).to(device)}
 
 
 class SyntheticTokens:

@@ -5,7 +5,10 @@ nested dicts/lists of arrays with the same layout as the port's, so the
 move is a copy with no transposes.  The reference side hands over numpy
 arrays (``np.asarray`` of a jax array works as is).  Containers keep their
 shape, empty dicts included: OLMo's non-parametric norms are ``{}`` and a
-block without its ``norm1`` key would read as a different model.
+block without its ``norm1`` key would read as a different model.  The
+CNN (``models/cnn.py``) keeps the reference's HWIO convolutions and NHWC
+``fc1`` row order for the same reason QSGD needs it, so its parameters
+cross unpermuted too.
 """
 from __future__ import annotations
 

@@ -5,9 +5,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --method qsgd_periodic
 
 Runs on the card; ``--device cpu`` runs on the CPU.  ``--method`` offers
-the strategies the port has registered, ``--backend`` its backends.  The
-reference's flags for parts not ported yet (telemetry clocks, checkpoints,
-mesh placements, AdaComm, hierarchical periods) come with those parts.
+every strategy of the reference, ``--backend`` the port's backends.
+``--net`` binds a telemetry clock (``runtime/clock.py``): ``real`` times
+each program on the device, ``10gbps`` / ``100gbps`` / ``<x>gbps``
+simulate the paper's network.  The reference's flags for parts not ported
+yet (checkpoints, mesh placements) come with those parts.
 ``--no-reduced`` keeps the published widths and ``--layers`` cuts depth.
 """
 from __future__ import annotations
@@ -27,6 +29,7 @@ from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.launch.steps import make_loss_fn
 from repro_torch.models import model as M
 from repro_torch.optim import get_optimizer, make_lr_schedule
+from repro_torch.runtime.clock import make_clock
 from repro_torch.runtime.engine import PeriodicEval, TrainerEngine
 from repro_torch.strategies import available_strategies, make_strategy
 from repro_torch.tree import tree_leaves
@@ -45,6 +48,23 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "(auto = on whenever the parameters are on CUDA)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--net", default="none",
+                    help="telemetry clock: 'none', 'real' (WallClock: each "
+                         "program timed to its end on the device), or "
+                         "'10gbps'/'100gbps'/'<x>gbps' (SimulatedClock: "
+                         "compute per step, communication from the "
+                         "analytic model at that bandwidth)")
+    ap.add_argument("--wallclock-sample-every", type=int, default=1,
+                    help="with --net real: wait for the device only every "
+                         "N steps and interpolate the Timeline in between "
+                         "(1 = every program)")
+    ap.add_argument("--adacomm-mode", default="iterations",
+                    choices=["iterations", "time"],
+                    help="adacomm block: 'iterations' (an interval of "
+                         "steps) or 'time' (t0-second blocks on the --net "
+                         "clock, the paper's form)")
+    ap.add_argument("--adacomm-t0", type=float, default=1.0,
+                    help="seconds per adacomm_mode=time block")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--replicas", type=int, default=4)
     ap.add_argument("--batch", type=int, default=4, help="per-replica batch")
@@ -57,12 +77,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--p-init", type=int, default=2)
     ap.add_argument("--p-const", type=int, default=8)
     ap.add_argument("--warmup-sync", type=int, default=8)
+    ap.add_argument("--inner-period", type=int, default=1)
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
     ap.add_argument("--eval-every", type=int, default=0,
                     help="evaluate the replica-averaged model every N steps")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.adacomm_mode == "time" and args.net in ("", "none"):
+        ap.error("--adacomm-mode time needs a clock: pass --net "
+                 "real|10gbps|100gbps|<x>gbps")
+    return args
 
 
 def build_engine(args: argparse.Namespace, callbacks=()):
@@ -74,7 +99,11 @@ def build_engine(args: argparse.Namespace, callbacks=()):
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     avg_cfg = AveragingConfig(
         method=args.method, p_init=args.p_init, p_const=args.p_const,
-        warmup_full_sync_steps=args.warmup_sync, k_sample_frac=0.25)
+        warmup_full_sync_steps=args.warmup_sync, k_sample_frac=0.25,
+        inner_period=args.inner_period, adacomm_mode=args.adacomm_mode,
+        adacomm_t0=args.adacomm_t0)
+    clock = make_clock(args.net,
+                       wallclock_sample_every=args.wallclock_sample_every)
     lr = args.lr if args.lr is not None else min(run.learning_rate, 0.05)
     lr_fn = make_lr_schedule(
         "step", lr, args.steps,
@@ -103,7 +132,7 @@ def build_engine(args: argparse.Namespace, callbacks=()):
         n_replicas=args.replicas, data_fn=data_fn, lr_fn=lr_fn,
         avg_cfg=avg_cfg, total_steps=args.steps,
         strategy=make_strategy(avg_cfg, args.steps), backend=backend,
-        callbacks=callbacks,
+        clock=clock, callbacks=callbacks,
         track_variance_every=max(1, args.steps // 50), seed=args.seed)
     return engine, cfg
 
@@ -122,6 +151,8 @@ def main(argv: Optional[Sequence[str]] = None):
     print(f"  syncs={hist.n_syncs} mean_period="
           f"{args.steps / max(1, hist.n_syncs):.2f} "
           f"final_p={hist.period_history[-1] if hist.period_history else 1}")
+    if hist.inner_sync_steps:
+        print(f"  inner_syncs={len(hist.inner_sync_steps)}")
     leaves = tree_leaves(hist.final_W)
     op = engine.strategy.sync_op()
     per_event = op.wire_bytes(sum(x.numel() for x in leaves) // args.replicas,
@@ -133,6 +164,12 @@ def main(argv: Optional[Sequence[str]] = None):
               + " ".join(f"{k}={v:.4f}" for k, v in hist.evals[-1].items()))
     print(f"  weighted-avg Var[W_k] (paper Eq.9) = "
           f"{hist.weighted_avg_variance():.3e}")
+    if hist.timing:
+        t = hist.timing
+        print(f"  [{t['clock']} clock / {args.net}] "
+              f"compute={t['compute_s']:.3f}s comm={t['comm_s']:.3f}s "
+              f"total={t['sim_wall_s']:.3f}s "
+              f"bytes/node={t['bytes']:.3e}")
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
@@ -142,8 +179,10 @@ def main(argv: Optional[Sequence[str]] = None):
                        "losses": hist.losses, "s_k": hist.s_k,
                        "sync_steps": hist.sync_steps,
                        "periods": hist.period_history,
+                       "inner_sync_steps": hist.inner_sync_steps,
                        "variances": hist.variances,
-                       "variance_steps": hist.variance_steps}, f)
+                       "variance_steps": hist.variance_steps,
+                       "timing": hist.timing}, f)
         print(f"  history -> {args.out}")
     return hist
 

@@ -7,13 +7,19 @@ device-specific in the ``ExecutionBackend``.  Per iteration the engine asks
 the strategy which programs to run (``strategy.actions(k)``), runs them and
 routes their outputs:
 
-* ``info["loss"]`` -> training-loss sample
-* ``info["s_k"]``  -> a sync happened: feed ``strategy.observe`` and record
-                      the probe / period trajectory
+* ``info["loss"]``       -> training-loss sample
+* ``info["s_k"]``        -> a sync happened: feed ``strategy.observe`` and
+                            record the probe / period trajectory
+* ``info["s_k_at"]``     -> ``(step, s_k)``: a sync whose probe was fetched
+                            later than it was measured (DaSGD's overlapped
+                            snapshot), recorded against its snapshot step
+* ``info["inner_sync"]`` -> hierarchical inner-sync marker
 
-A small callback bus hangs off the loop (variance probing, periodic eval).
-The telemetry clocks and checkpoints of the reference are not ported yet:
-``clock`` must be None.
+A telemetry clock (``runtime/clock.py``) rides the backend, which wraps
+every program it lowers, and its Timeline rides the engine
+(``engine.timeline``; ``TrainHistory.timing``).  A small callback bus hangs
+off the loop (variance probing, periodic eval).  Checkpoints of the
+reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from repro_torch.configs.base import AveragingConfig
 from repro_torch.core import averaging as avg
 from repro_torch.core import prng
 from repro_torch.device import DeviceLike
+from repro_torch.runtime.clock import Clock, Timeline
 from repro_torch.strategies import CommunicationStrategy, make_strategy
 
 Pytree = Any
@@ -43,12 +50,16 @@ class TrainHistory:
     s_k: List[float] = field(default_factory=list)             # probe at syncs
     sync_steps: List[int] = field(default_factory=list)
     period_history: List[int] = field(default_factory=list)
+    inner_sync_steps: List[int] = field(default_factory=list)  # hierarchical
     lrs: List[float] = field(default_factory=list)
     lr_start_step: int = 0
     evals: List[Dict[str, float]] = field(default_factory=list)
     eval_steps: List[int] = field(default_factory=list)
     wall_s: float = 0.0
     n_syncs: int = 0
+    # Timeline.summary() plus the clock's kind and now() when the engine
+    # carried a clock; None on unclocked runs
+    timing: Optional[Dict[str, Any]] = None
     final_W: Optional[Pytree] = None
     final_opt: Optional[Pytree] = None
 
@@ -70,10 +81,14 @@ class Callback:
 
     def on_step_end(self, engine: "TrainerEngine", k: int,
                     metrics: Dict[str, Any]) -> None:
+        """On clocked runs ``metrics["timing"]`` is the step program's
+        ``ProgramTiming``."""
         pass
 
     def on_sync(self, engine: "TrainerEngine", k: int, s_k: float,
                 timing=None) -> None:
+        """``timing`` is the exchange's ``ProgramTiming`` on clocked runs,
+        None otherwise."""
         pass
 
     def on_iteration_end(self, engine: "TrainerEngine", k: int,
@@ -130,14 +145,11 @@ class TrainerEngine:
                  avg_cfg: Optional[AveragingConfig] = None,
                  strategy: Optional[CommunicationStrategy] = None,
                  backend: Optional[ExecutionBackend] = None,
-                 clock=None,
+                 clock: Optional[Clock] = None,
                  callbacks: Sequence[Callback] = (),
                  track_variance_every: int = 0,
                  seed: int = 0,
                  device: DeviceLike = None):
-        if clock is not None:
-            raise NotImplementedError(
-                "telemetry clocks (runtime/clock.py) are not ported yet")
         if strategy is None:
             if avg_cfg is None:
                 raise ValueError("need avg_cfg or strategy")
@@ -148,8 +160,14 @@ class TrainerEngine:
                 "pass one or the other (or matching configs)")
         self.backend = resolve_backend(backend, device=device)
         self.backend.bind(n_replicas)
+        self.clock = clock
+        self.timeline: Optional[Timeline] = clock.timeline if clock else None
+        # unconditional: None also clears a clock that an earlier engine
+        # left bound on a reused backend
+        self.backend.set_clock(clock)
         self.strategy = strategy
         self.strategy.compile(loss_fn, optimizer, backend=self.backend)
+        self.strategy.bind_clock(clock)
         self._optimizer = optimizer
         self.loss_fn = loss_fn
         self.data_fn = data_fn
@@ -180,35 +198,72 @@ class TrainerEngine:
         if not hist.lrs:
             hist.lr_start_step = start_step
         t0 = time.time()
+        tl = self.timeline
+        # a sampled WallClock keeps the device queue ahead of the host: a
+        # per-step float(loss) would synchronize every step, so losses
+        # stay device scalars until the run ends (same values)
+        defer_loss = bool(getattr(self.clock, "defer_loss_readback", False))
+
+        def record_sync(at, lr_at, s_val, timing):
+            """One sync into history, controller and callbacks, shared by
+            the immediate ("s_k") and the overlapped ("s_k_at") paths."""
+            s_k = float(s_val)
+            self.strategy.observe(at, lr_at, s_k)
+            hist.s_k.append(s_k)
+            hist.sync_steps.append(at)
+            hist.period_history.append(self.strategy.period)
+            for cb in self.callbacks:
+                cb.on_sync(self, at, s_k, timing)
+
         for k in range(start_step, stop):
             lr = self.lr_fn(k)
             hist.lrs.append(lr)
             batch = self.data_fn(k)
             step_key = prng.fold_in(self._base_key, k)
             step_info: Dict[str, Any] = {}
+            if tl is not None:
+                tl.step = k          # dispatches below stamp this iteration
             for j, action in enumerate(self.strategy.actions(k)):
                 key = prng.fold_in(step_key, j)
                 self.W, self.opt_state, info = self.strategy.dispatch(
                     action, self.W, self.opt_state, batch, lr, key)
+                timing = tl.last if tl is not None else None
                 if "loss" in info:
                     step_info = info
-                    loss_val = float(info["loss"])
+                    loss_val = (info["loss"] if defer_loss
+                                else float(info["loss"]))
                     hist.losses.append(loss_val)
                     self.strategy.observe_loss(k, loss_val)
+                    if timing is not None:
+                        info["timing"] = timing
                     for cb in self.callbacks:
                         cb.on_step_end(self, k, info)
                 if "s_k" in info:
-                    s_k = float(info["s_k"])
-                    self.strategy.observe(k, lr, s_k)
-                    hist.s_k.append(s_k)
-                    hist.sync_steps.append(k)
-                    hist.period_history.append(self.strategy.period)
-                    for cb in self.callbacks:
-                        cb.on_sync(self, k, s_k, None)
+                    record_sync(k, lr, info["s_k"], timing)
+                if "s_k_at" in info:
+                    # the probe belongs to the snapshot iteration; at most
+                    # one exchange is in flight (delay < period), so the
+                    # history stays in order
+                    at, s_val = info["s_k_at"]
+                    at = int(at)
+                    if tl is not None:
+                        # on_sync gets the exchange's record, written at
+                        # dispatch, not the apply program's (tl.last)
+                        timing = next(
+                            (r for r in reversed(tl.records)
+                             if r.overlap and r.step == at), timing)
+                    record_sync(at, self.lr_fn(at), s_val, timing)
+                if info.get("inner_sync"):
+                    hist.inner_sync_steps.append(k)
             for cb in self.callbacks:
                 cb.on_iteration_end(self, k, step_info)
+        if defer_loss:
+            hist.losses[:] = [float(v) for v in hist.losses]
         hist.wall_s += time.time() - t0
         hist.n_syncs = self.strategy.n_comm_events
+        if tl is not None:
+            hist.timing = dict(tl.summary(), clock=self.clock.kind,
+                               sim_wall_s=self.clock.now())
         hist.final_W = self.W
         hist.final_opt = self.opt_state
         for cb in self.callbacks:

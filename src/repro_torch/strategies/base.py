@@ -9,7 +9,10 @@ A ``CommunicationStrategy`` owns everything policy-specific:
   ``(W, opt_state, batch, lr, key) -> (W, opt_state, info)``.
 * ``actions(k)`` — the host-side decision: which programs run at
   iteration k, in order.
-* ``observe(k, lr, s_k)`` — feedback after a sync (Algorithm 2 lines 14-19).
+* ``observe(k, lr, s_k)`` — feedback after a sync (Algorithm 2 lines 14-19);
+  ``observe_loss(k, loss)`` — per-step loss feedback (AdaComm);
+  ``bind_clock(clock)`` — the engine's telemetry clock (AdaComm's time
+  mode).
 * ``sync_op()`` — the descriptor of one communication event, and the sole
   pricing source of the accounting hooks.
 """
@@ -23,12 +26,16 @@ from repro_torch.core.comm_model import CommStats, comm_time
 
 Pytree = Any
 # program: (W, opt_state, batch, lr, key) -> (W, opt_state, info)
-#   info["loss"] -> the engine records a training-loss sample
-#   info["s_k"]  -> the program was a sync; the engine feeds observe()
+#   info["loss"]       -> the engine records a training-loss sample
+#   info["s_k"]        -> the program was a sync; the engine feeds observe()
+#   info["s_k_at"]     -> (step, s_k): a probe fetched after the step it
+#                         measured (DaSGD's overlapped snapshot)
+#   info["inner_sync"] -> hierarchical inner (in-pod) sync marker
 Program = Callable[..., Tuple[Pytree, Optional[Pytree], Dict[str, Any]]]
 
 STEP = "step"
 SYNC = "sync"
+INNER_SYNC = "inner_sync"
 
 
 class CommunicationStrategy:
@@ -70,6 +77,10 @@ class CommunicationStrategy:
 
     def observe_loss(self, k: int, loss: float) -> None:
         """Per-step training loss feedback (loss-adaptive policies)."""
+
+    def bind_clock(self, clock) -> None:
+        """Hand the engine's telemetry clock (may be None) to time-driven
+        policies (the wall-clock AdaComm controller).  Base: ignore."""
 
     @property
     def period(self) -> int:

@@ -63,6 +63,12 @@ class PeriodicAveragingStrategy(CommunicationStrategy):
     def observe(self, k: int, lr: float, s_k: float) -> None:
         self.controller.observe(k, lr, s_k)
 
+    def bind_clock(self, clock) -> None:
+        # only time-driven controllers (AdaCommTimeController) declare the
+        # hook; they check that a clock is present
+        if hasattr(self.controller, "bind_clock"):
+            self.controller.bind_clock(clock)
+
     @property
     def period(self) -> int:
         return self.controller.period

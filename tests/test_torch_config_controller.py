@@ -11,6 +11,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
 from repro.core import controller as jax_ctrl
 from repro.optim import make_lr_schedule as jax_lr
+from repro.strategies import available_strategies as jax_available_strategies
 from repro.strategies import comm_stats_for as jax_comm_stats_for
 from repro_torch.backends import ops as torch_ops
 from repro_torch.configs import AveragingConfig, get_config, reduced
@@ -20,7 +21,8 @@ from repro_torch.optim import make_lr_schedule
 from repro_torch.strategies import available_strategies, comm_stats_for
 
 CONTROLLERS = ["ADPSGDController", "ConstantPeriodController",
-               "DecreasingPeriodController", "FullSyncController"]
+               "DecreasingPeriodController", "FullSyncController",
+               "HierarchicalADPSGDController"]
 AVG_CASES = [
     dict(p_init=2, warmup_full_sync_steps=2, k_sample_frac=0.25),
     dict(p_init=4, p_const=3, warmup_full_sync_steps=0, k_sample_frac=0.0),
@@ -95,9 +97,11 @@ def test_qsgd_wire_bytes_identical(op, bits):
 
 
 @pytest.mark.parametrize("method", ["adpsgd", "cpsgd", "decreasing", "fullsgd",
-                                    "qsgd", "qsgd_periodic"])
+                                    "qsgd", "qsgd_periodic", "hier_adpsgd",
+                                    "adacomm", "dasgd"])
 def test_comm_stats_identical(method):
     assert method in available_strategies()
+    assert available_strategies() == jax_available_strategies()
     args = (532_202, 8, 60, 12, GBPS_10)
     got = comm_stats_for(method, AveragingConfig(method=method), *args)
     want = jax_comm_stats_for(method, JaxAvgCfg(method=method), *args)
@@ -114,3 +118,78 @@ def test_configs_match_reference():
         dataclasses.asdict(jax_reduced(j.model, max_seq_len=32))
     assert dataclasses.asdict(AveragingConfig()) == \
         dataclasses.asdict(JaxAvgCfg())
+
+
+@pytest.mark.parametrize("case", range(len(AVG_CASES)))
+@pytest.mark.parametrize("inner_period", [1, 2, 3])
+def test_hierarchical_controller_identical(case, inner_period):
+    """Outer ADPSGD decisions, inner constant-period decisions, and the
+    outer sync resetting the inner count, as the strategy drives them."""
+    steps = 120
+    rng = np.random.RandomState(10 + case)
+    s_ks = np.exp(rng.randn(steps)) * np.linspace(1.0, 3.0, steps)
+    lr = make_lr_schedule("step", 0.05, steps, decay_steps=(60, 90))
+    out = []
+    for mod, cfg_cls in ((torch_ctrl, AveragingConfig), (jax_ctrl, JaxAvgCfg)):
+        ctrl = mod.HierarchicalADPSGDController(
+            cfg_cls(**AVG_CASES[case], inner_period=inner_period), steps)
+        trace = []
+        for k in range(steps):
+            if ctrl.sync_now(k):
+                ctrl.reset_inner()
+                ctrl.observe(k, lr(k), float(s_ks[k]))
+                trace.append(("outer", ctrl.period))
+            elif ctrl.inner_sync_now(k):
+                trace.append(("inner", ctrl.period))
+        out.append((trace, ctrl.sync_steps, ctrl.inner_sync_steps,
+                    ctrl.state_dict(), ctrl.n_syncs, ctrl.mean_period()))
+    assert out[0] == out[1]
+    if inner_period == 2 and case == 0:
+        assert out[0][2]                       # inner syncs happened
+
+
+@pytest.mark.parametrize("interval", [4, 20])
+@pytest.mark.parametrize("p_init", [2, 8])
+def test_adacomm_controller_identical(interval, p_init):
+    """AdaComm's iteration blocks: tau = ceil(tau0·sqrt(F/F0)) from a
+    noisy decaying loss, in the reference's f64 arithmetic."""
+    steps = 200
+    rng = np.random.RandomState(interval + p_init)
+    losses = 2.3 * np.exp(-np.arange(steps) / 70) + 0.05 * rng.rand(steps)
+    out = []
+    for mod, cfg_cls in ((torch_ctrl, AveragingConfig), (jax_ctrl, JaxAvgCfg)):
+        ctrl = mod.AdaCommController(cfg_cls(
+            method="adacomm", p_init=p_init, adacomm_interval=interval,
+            warmup_full_sync_steps=2), steps)
+        for k in range(steps):
+            ctrl.sync_now(k)
+            ctrl.observe_loss(k, float(losses[k]))
+        out.append((ctrl.sync_steps, ctrl.period_history, ctrl.state_dict()))
+    assert out[0] == out[1]
+    assert len(set(out[0][1])) > 1
+
+
+@pytest.mark.parametrize("method", ["adpsgd", "cpsgd", "decreasing", "fullsgd",
+                                    "qsgd", "qsgd_periodic", "hier_adpsgd",
+                                    "adacomm", "dasgd"])
+def test_make_controller_identical(method):
+    got = torch_ctrl.make_controller(AveragingConfig(method=method), 10)
+    want = jax_ctrl.make_controller(JaxAvgCfg(method=method), 10)
+    assert type(got).__name__ == type(want).__name__
+
+
+@pytest.mark.parametrize("op,args", [("inner_mean_op", (2,)),
+                                     ("inner_mean_op", (4,)),
+                                     ("mean_delta_op", ()),
+                                     ("apply_delta_op", ())])
+def test_hierarchical_and_dasgd_ops_identical(op, args):
+    kw = [{"overlap": True}, {}] if op == "mean_delta_op" else [{}]
+    for k in kw:
+        t, j = getattr(torch_ops, op)(*args, **k), \
+            getattr(jax_ops, op)(*args, **k)
+        assert (t.name, t.collective, t.is_step, t.group, t.overlap) == \
+            (j.name, j.collective, j.is_step, j.group, j.overlap)
+        for n_params in (1, 532_202, 371_458_048):
+            for n_nodes in (1, 2, 4, 8):
+                assert t.wire_bytes(n_params, n_nodes, 29) == \
+                    j.wire_bytes(n_params, n_nodes, 29)

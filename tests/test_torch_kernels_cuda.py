@@ -1,5 +1,7 @@
 """The CUDA kernels (mean_and_sqdev; QSGD's sqnorm, quantize and
-dequantize; flash attention) against their plain versions, on the card.
+dequantize; flash attention) against their plain versions, on the card;
+and the programs around them that only the card can check (DaSGD's
+snapshot in stream order, the WallClock waiting for the device).
 
 Imports neither jax nor the reference, so it runs where the port runs:
 
@@ -149,6 +151,88 @@ def test_quantized_sync_uses_kernels_on_cuda(cuda):
     assert abs(float(sk) - float(sp)) <= 1e-5 * abs(float(sp))
     torch.testing.assert_close(Wk["a"], Wp["a"], rtol=1e-6, atol=1e-6)
     assert torch.equal(Wk["a"], Wk["a"][:1].expand_as(Wk["a"]))
+
+
+@pytest.mark.cuda
+def test_mean_delta_uses_kernel_and_stream_order_on_cuda(cuda):
+    """DaSGD's snapshot: one mean_and_sqdev launch per leaf; the delta is
+    mean − w_i; the work is queued on W's stream, so an in-place write to
+    W right after the dispatch (the next local step) does not reach the
+    fetched delta; apply_delta adds it in place; S_k as the plain
+    version's (rtol 1e-5)."""
+    from repro_torch.backends import VmapBackend
+    g = torch.Generator().manual_seed(3)
+    W = {"a": torch.randn(4, 300, generator=g).to(cuda), "n": {},
+         "b": [torch.randn(4, 7, 5, generator=g).to(cuda)]}
+    old = {"a": W["a"].clone(), "b": W["b"][0].clone()}
+    backend = VmapBackend(device=cuda)
+    before = mean_and_sqdev.launches
+    inflight = backend.mean_delta(overlap=True)(W)
+    W["a"].add_(100.0)                        # the next step, in place
+    W["b"][0].mul_(-3.0)
+    delta, s_k = inflight.fetch()
+    assert mean_and_sqdev.launches == before + 2
+    want = float(sum(torch_ref.mean_and_sqdev_ref(x)[1]
+                     for x in old.values()) / 4)
+    assert abs(float(s_k) - want) <= 1e-5 * want
+    torch.testing.assert_close(delta["a"], old["a"].mean(0) - old["a"],
+                               rtol=0, atol=1e-6)
+    torch.testing.assert_close(delta["b"][0],
+                               old["b"].mean(0) - old["b"], rtol=0, atol=1e-6)
+    ptr = W["a"].data_ptr()
+    W = backend.apply_delta()(W, delta)
+    assert W["a"].data_ptr() == ptr
+    torch.testing.assert_close(W["a"], old["a"] + 100.0
+                               + (old["a"].mean(0) - old["a"]),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_inner_mean_on_cuda(cuda):
+    from repro_torch.backends import VmapBackend
+    g = torch.Generator().manual_seed(4)
+    W = {"a": torch.randn(4, 3, 5, generator=g).to(cuda),
+         "b": [torch.randn(4, 11, generator=g).to(cuda)]}
+    want = W["a"].view(2, 2, 3, 5).mean(1)
+    W = VmapBackend(device=cuda).inner_mean(2)(W)
+    for x in (W["a"], W["b"][0]):
+        assert torch.equal(x[0], x[1]) and torch.equal(x[2], x[3])
+        assert not torch.equal(x[0], x[2])
+    torch.testing.assert_close(W["a"][::2], want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_wallclock_waits_for_the_card(cuda):
+    """A WallClock record of a CUDA program covers the program's device
+    time: at least the time of a known ``torch.cuda._sleep``, timed by
+    CUDA events.  The SimulatedClock returns while the sleep still runs."""
+    from repro_torch.runtime.clock import SimulatedClock, WallClock
+    cycles = 100_000_000
+    x = torch.zeros(4, device=cuda)
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    sleep_s = start.elapsed_time(end) / 1e3
+
+    def program(x):
+        torch.cuda._sleep(cycles)
+        return {"s_k": x + 1}
+
+    clock = WallClock()
+    clock.measure("all_mean", program, (x,), is_step=False)
+    rec = clock.timeline.last
+    assert clock.n_blocks == 1 and rec.compute_s == 0.0
+    assert rec.comm_s >= 0.99 * sleep_s > 0.005
+    sim = SimulatedClock("10gbps")
+    sim.measure("replica_step", program, (x,), is_step=True)
+    assert not torch.cuda.current_stream(cuda).query()
+    torch.cuda.synchronize()
+    assert sim.timeline.last.compute_s == 5e-3
 
 
 def _sqnorm_group(sizes, seed):
