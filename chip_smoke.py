@@ -28,13 +28,21 @@ the paper's CNN experiment (``benchmarks/common.py``'s settings, built
 from the port's modules, from the reference's init) for all nine
 strategies at 10 and 100 Gbps beside ``BENCH_engine.json``, holding its
 loss and gradients on the card against the CPU route and every sync's
-S_k against the plain route.  Each path is driven with the launch counts
-set to 0 just before it and read just after.
+S_k against the plain route, and FULLSGD's final W bitwise equal under
+both clocks.  Phase 9 checkpoints phase 3's run after 8 steps and phase
+7's dasgd run with a correction in flight, resumes each through the
+training CLI's setup and ``TrainerEngine.load_state``, and holds both to
+the uninterrupted runs bit for bit; phase 10 serves MiniCPM-2B, GLM4-9B
+and Qwen2.5-14B at full width and depth as phase 5 serves OLMo-1B.  Each
+path is driven with the launch counts set to 0 just before it and read
+just after.
 
-Phases: 1 environment and build (no kernel may spill registers); 2
-kernels against their plain versions; 3, 3b, 3c the training paths; 4
-kernel timings; 5 serving; 6 the clock; 7 the last three strategies; 8
-the CNN experiment.  Any failed check exits non-zero.
+Phases: 1 environment and build (no kernel may spill registers; TF32
+off, deterministic cuDNN); 2 kernels against their plain versions; 3,
+3b, 3c the training paths; 4 kernel timings; 5 serving; 6 the clock; 7
+the last three strategies; 8 the CNN experiment; 9 checkpoint / resume;
+10 the dense configs served.  Each phase prints its seconds.  Any failed
+check exits non-zero.
 The card's ``nvidia-smi`` name and power limit stand on the line before
 the ``{"kernels": [...]}`` line, and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -109,6 +117,15 @@ GLM4_GQA = (1, 4096, 32, 2, 128)
 PREFILL_32K = (1, 32768, 16, 16, 128)
 # serving: OLMo-1B, all 16 layers, 4 x 2048 prefill; generate 4 x (128 + 128)
 SERVE_BATCH, SERVE_SEQ, SERVE_PROMPT, SERVE_GEN = 4, 2048, 128, 128
+# phase 10: the three dense configs at full width and depth, 1 x 2048
+# prefill, generate 1 x (128 + 32); each one's prefill layer (B, S, H, K, d)
+DENSE_ARCHS = {"minicpm-2b": (1, 2048, 36, 36, 64),
+               "glm4-9b": (1, 2048, 32, 2, 128),
+               "qwen2.5-14b": (1, 2048, 40, 8, 128)}
+DENSE_BATCH, DENSE_SEQ, DENSE_PROMPT, DENSE_GEN = 1, 2048, 128, 32
+# phase 9: phase 3 split 8 + 8; phase 7's dasgd split between a snapshot
+# and its apply
+RESUME_AT = 8
 
 
 class CheckFailed(Exception):
@@ -413,7 +430,8 @@ def phase_flash_kernels(device) -> dict:
     shapes x f32/bf16 x window 0/64, causal, and the block-size case) at
     its tolerances, atol = rtol = 2e-5 in f32 and 2e-2 in bf16 (online
     against exact softmax; one bf16 rounding of the output, and of P in
-    the wgmma instance); the OLMo-1B prefill layer, GLM4-9B's GQA heads and
+    the wgmma instance); the prefill layers of phase 10's three dense
+    configs, the OLMo-1B prefill layer, GLM4-9B's GQA heads and
     causal=False in bf16.  Every call is run twice for a bitwise repeat,
     adds 1 to the launch count each time, and a length the reference
     refuses raises."""
@@ -428,6 +446,7 @@ def phase_flash_kernels(device) -> dict:
     cases += [((1, 256, 4, 2, 64), f32, True, 0,
                {"block_q": bq, "block_k": bk})
               for bq, bk in ((64, 64), (128, 64), (64, 128))]
+    cases += [(shape, bf16, True, 0, {}) for shape in DENSE_ARCHS.values()]
     cases += [(OLMO_PREFILL, bf16, True, 0, {}), (GLM4_GQA, bf16, True, 0, {}),
               ((2, 256, 4, 2, 32), f32, False, 0, {}),
               ((2, 256, 4, 2, 32), bf16, False, 0, {}),
@@ -579,9 +598,20 @@ def phase_main_path() -> dict:
             for k, s in zip(hist.sync_steps, hist.s_k)]
     print(f"  s_k rel err kernel vs plain per sync={rels}")
     check(rels[-1] <= 1e-4, f"last sync S_k rel err {rels[-1]} > 1e-4")
-    out.pop("engine")
+    engine = out.pop("engine")
     out["trajectory"] = (hist.sync_steps, hist.losses, hist.s_k)
+    out["resume_ref"] = resume_ref(engine, hist)
     return out
+
+
+def resume_ref(engine, hist) -> dict:
+    """A run's history and its final W on the host: what phase 9's resumed
+    run must reproduce bit for bit."""
+    from repro_torch.tree import tree_leaves
+    return {"losses": hist.losses, "sync_steps": hist.sync_steps,
+            "period_history": hist.period_history, "s_k": hist.s_k,
+            "n_syncs": hist.n_syncs,
+            "W": [x.cpu() for x in tree_leaves(engine.W)]}
 
 
 def phase_qsgd_periodic() -> dict:
@@ -914,6 +944,8 @@ def phase_strategies() -> dict:
     check_sync_launches(out["launches"], hist.n_syncs)
     results["dasgd"] = {k: out[k] for k in ("launches", "ms", "calls")}
     results["dasgd"]["s_k_rel"] = rels
+    results["dasgd"]["resume_ref"] = dict(resume_ref(engine, hist),
+                                          snaps=snaps, applies=applies)
     del engine, hist      # hist holds the final W and optimizer state
     release()
 
@@ -1106,7 +1138,10 @@ def phase_cnn() -> dict:
     against the plain route.  The loss and gradients on the card are held
     against the CPU route at the init and at FULLSGD's final replica 0.
     FULLSGD from three more seeds shows how the setting's step-1
-    overshoot ends (printed)."""
+    overshoot ends (printed).  FULLSGD's final W is bitwise equal at 10
+    and 100 Gbps: the same program from the same init, with deterministic
+    convolutions."""
+    import torch
     from repro_torch.data.pipeline import SyntheticImages
     from repro_torch.models.cnn import init_cnn
     from repro_torch.strategies import available_strategies
@@ -1134,6 +1169,7 @@ def phase_cnn() -> dict:
     check(sorted(names) == sorted(recorded["strategies"]),
           "strategies differ from BENCH_engine.json's")
     table, launches_all, wall = {}, dict.fromkeys(KERNEL_NAMES, 0), {}
+    fullsgd_W = {}
     for net in ("10gbps", "100gbps"):
         cols = {}
         for name in names:
@@ -1156,6 +1192,8 @@ def phase_cnn() -> dict:
                     tree_map(lambda x: x[0], hist.final_W),
                     {k: v[0] for k, v in batches(CNN_STEPS - 1).items()}))
                 c["step1_loss"] = hist.losses[1]
+            if name == "fullsgd":
+                fullsgd_W[net] = tree_leaves(hist.final_W)
             del hist
         full = cols["fullsgd"]["sim_wall_s"]
         for c in cols.values():
@@ -1178,6 +1216,15 @@ def phase_cnn() -> dict:
             diff = [k for k in keys + ("sim_compute_s",) if got[k] != rec[k]]
             check(not diff, f"{name}/{net} differs from BENCH_engine.json "
                             f"in {diff}")
+    # the clock never touches the numerics, and the convolutions are
+    # deterministic (cudnn.deterministic): one program from one init
+    same = [torch.equal(a, b) for a, b in zip(fullsgd_W["10gbps"],
+                                              fullsgd_W["100gbps"])]
+    print(f"  FULLSGD final W at 10gbps and 100gbps bitwise equal per leaf: "
+          f"{same}; final_loss {table['10gbps']['fullsgd']['final_loss']} / "
+          f"{table['100gbps']['fullsgd']['final_loss']}")
+    check(all(same), "FULLSGD's final W differs between the two clocks")
+    del fullsgd_W
     s10 = table["10gbps"]["adpsgd"]["speedup_vs_fullsgd"]
     s100 = table["100gbps"]["adpsgd"]["speedup_vs_fullsgd"]
     print(f"  ADPSGD speedup over FULLSGD: 10gbps {s10} > 100gbps {s100} "
@@ -1197,6 +1244,158 @@ def phase_cnn() -> dict:
     return {"launches": launches_all, "table": table, "seed_sweep": sweep,
             "grad_rel": grad_rel,
             "host_s": {f"{n}/{net}": v for (n, net), v in wall.items()}}
+
+
+# ------------------------------------------------------------------ phase 9
+def resume_check(label: str, argv, split: int, ref: dict) -> dict:
+    """Run ``argv`` for ``split`` steps through the training CLI's setup,
+    save a checkpoint (``Checkpointer.save``) into a fresh temporary
+    directory, build a second engine through the same setup, load the
+    checkpoint onto the host and install it (``load_state`` copies each
+    leaf once onto the card, so the load holds less than half the
+    checkpoint's bytes on the card above the fresh engine's) and run the
+    remaining steps.  The two
+    segments' histories must reassemble ``ref`` (the uninterrupted run of
+    an earlier phase) exactly, the final W must equal its W bitwise, and
+    the resumed segment launches mean_and_sqdev 29 times per sync it
+    counts.  Prints the free space at the start, the checkpoint's bytes
+    on disk and the save and load seconds; the directory is removed
+    afterwards."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.io import load_checkpoint
+    from repro_torch.launch import train
+    from repro_torch.runtime.engine import Checkpointer
+    from repro_torch.tree import tree_leaves
+
+    args = train.parse_args(argv)
+    path = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        release()
+        engine, _ = train.build_engine(args)
+        first = engine.run(num_steps=split)
+        in_flight = getattr(engine.strategy, "_apply_at", None)
+        state = [engine.W, engine.opt_state]
+        if in_flight is not None:
+            state.append(engine.W)              # the f32 correction
+        need = sum(x.numel() * 4 for x in tree_leaves(state))
+        free = shutil.disk_usage(path).free
+        print(f"  {label}: {split} steps, then a checkpoint into {path}: "
+              f"{free} B free, about {need} B needed; correction in "
+              f"flight: {in_flight is not None} (due at step {in_flight})")
+        check(free >= need + 2**30,
+              f"{path} has {free} B free; the checkpoint needs about {need} "
+              f"B (set TMPDIR to a larger disk)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Checkpointer(path, every=split).save(engine, split)
+        save_s = time.perf_counter() - t0
+        files = {f: os.path.getsize(os.path.join(path, f))
+                 for f in sorted(os.listdir(path))}
+        on_disk = sum(files.values())
+        names = ("losses", "sync_steps", "period_history", "s_k")
+        seg = {k: list(getattr(first, k)) for k in names}
+        seg["n_syncs"] = first.n_syncs
+        del engine, first, state
+        release()
+
+        engine, _ = train.build_engine(args)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        W, opt_state, meta = load_checkpoint(path, "cpu")
+        read_s = time.perf_counter() - t0
+        engine.load_state(W, opt_state, strategy_state=meta["controller"],
+                          clock_state=meta.get("clock"))
+        del W, opt_state
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() - base
+        print(f"  {label}: card memory above the fresh engine's while "
+              f"loading: {load_peak} B (the checkpoint: {on_disk} B)")
+        check(load_peak < on_disk / 2,
+              f"{label}: the load held {load_peak} B more on the card")
+        reset_counts()
+        hist = engine.run(start_step=split)
+        launches = read_counts()
+        torch.cuda.synchronize()
+        print(f"  {label}: checkpoint {on_disk} B on disk "
+              f"({on_disk / 2**30:.2f} GiB) {files}; save {save_s:.3f} s "
+              f"({on_disk / save_s / 1e9:.3f} GB/s), load_checkpoint "
+              f"{read_s:.3f} s, with load_state {load_s:.3f} s; meta step "
+              f"{meta['step']} controller "
+              f"{ {k: v for k, v in meta['controller'].items() if k != '_arrays'} }")
+        print(f"  {label}: resumed losses={hist.losses}")
+        print(f"  {label}: resumed sync_steps={hist.sync_steps} periods="
+              f"{hist.period_history} s_k={hist.s_k} n_syncs={hist.n_syncs} "
+              f"launches={launches}")
+        same_W = [torch.equal(a.cpu(), b) for a, b in
+                  zip(tree_leaves(engine.W), ref["W"])]
+        same = {k: seg[k] + list(getattr(hist, k)) == ref[k] for k in names}
+        same.update(n_syncs=seg["n_syncs"] + hist.n_syncs == ref["n_syncs"],
+                    W=len(same_W) == len(ref["W"]) and all(same_W))
+        print(f"  {label}: both segments together bit-identical to the "
+              f"uninterrupted run: {same}")
+        check(all(same.values()), f"{label}: the resumed run differs: {same}")
+        check(meta["step"] == split, f"{label}: meta step {meta['step']}")
+        check_sync_launches(launches, hist.n_syncs)
+        out = {"launches": launches, "bytes_on_disk": on_disk,
+               "save_s": save_s, "read_s": read_s, "load_s": load_s,
+               "load_peak_bytes": load_peak, "free_bytes": free,
+               "in_flight": in_flight is not None,
+               "tail_syncs": hist.n_syncs}
+        del engine, hist
+        return out
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+        release()
+
+
+def phase_resume(main_ref: dict, dasgd_ref: dict) -> dict:
+    """(a) phase 3's ADPSGD run split 8 + save + 8; (b) phase 7's dasgd
+    run saved between its first steady-state snapshot and that snapshot's
+    apply (a correction in flight), resumed to the end."""
+    out = {"adpsgd": resume_check("9a adpsgd", MAIN_ARGV, RESUME_AT,
+                                  main_ref)}
+    snap = dasgd_ref["snaps"][0]
+    split = snap + 1
+    print(f"  9b dasgd: phase 7's snapshots {dasgd_ref['snaps']} applies "
+          f"{dasgd_ref['applies']}; saving after step {snap}, before the "
+          f"apply at {snap + 2}: split at {split}")
+    out["dasgd"] = resume_check("9b dasgd", DASGD_ARGV, split, dasgd_ref)
+    check(out["dasgd"]["in_flight"], "9b: no correction in flight")
+    out["dasgd"]["split"] = split
+    out["launches"] = {k: out["adpsgd"]["launches"][k]
+                       + out["dasgd"]["launches"][k] for k in KERNEL_NAMES}
+    return out
+
+
+# ----------------------------------------------------------------- phase 10
+def phase_dense_serving() -> dict:
+    """MiniCPM-2B, GLM4-9B and Qwen2.5-14B at full width and depth, one
+    after another (memory released between), through ``serve_checks``:
+    a 1 x 2048 prefill (n_layers flash launches; within 1.25x the plain
+    route's distance from f32) and generate 1 x (128 + 32)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    out = {"launches": dict.fromkeys(KERNEL_NAMES, 0)}
+    for arch in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch).model,
+                                  max_seq_len=DENSE_SEQ)
+        print(f"  {arch}: full width and depth (no cut)")
+        res = serve_checks(cfg, DENSE_BATCH, DENSE_SEQ, DENSE_PROMPT,
+                           DENSE_GEN)
+        res["wall_s"] = time.perf_counter() - t0
+        print(f"  {arch}: {res['wall_s']:.3f} s")
+        for k in KERNEL_NAMES:
+            out["launches"][k] += res["launches"][k]
+        out[arch] = res
+    return out
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1241,9 +1440,13 @@ def phase_qsgd_timing(W) -> dict:
     calls of 4, the kernels line's number) and by replica (qsgd, 4 calls of
     29), beside one call per tensor, ``torch.dot`` per tensor and
     ``torch._foreach_norm`` over the same groups (norms, not squares: a
-    yardstick)."""
+    yardstick).  The uniforms are timed as ``prng.uniform`` draws them,
+    in one piece, and in ``prng.CHUNK``-element pieces, alternately: one
+    replica's embedding draw, an exchange's draws, and a whole quantize /
+    dequantize round trip of the exchange (``qsgd.quantize_pytree`` per
+    replica), with the embedding draw's peak bytes."""
     import torch
-    from repro_torch.core import prng
+    from repro_torch.core import prng, qsgd
     from repro_torch.kernels import qsgd_quant as qq
     from repro_torch.kernels import ref
     from repro_torch.tree import tree_leaves
@@ -1327,21 +1530,57 @@ def phase_qsgd_timing(W) -> dict:
     out["sqnorm_exchange"] = sq_ex
     del items, embed, by_leaf, by_replica
     release()
-    keys = [prng.split(k, len(leaves))
-            for k in prng.replica_keys(prng.prng_key(17), range(R))]
-    uniform_ms = cuda_ms(lambda: [
-        prng.uniform(keys[r][i], w.shape[1:], device=w.device)
-        for i, w in enumerate(leaves) for r in range(R)], 2)
+    rkeys = prng.replica_keys(prng.prng_key(17), range(R))
+    keys = [prng.split(k, len(leaves)) for k in rkeys]
+    e = max(range(len(leaves)), key=lambda i: leaves[i][0].numel())
+    whole_uniform = prng.uniform
+
+    def chunked_uniform(key, shape, device=None):
+        """The rejected alternative: the draw in CHUNK-element pieces, as
+        ``prng.normal`` makes it."""
+        return prng._draw(key, shape, device, lambda u: u)
+
+    draws = {
+        "embed_uniform": (lambda: prng.uniform(
+            keys[0][e], leaves[e].shape[1:], device=leaves[e].device), 5),
+        "exchange_uniforms": (lambda: [
+            prng.uniform(keys[r][i], w.shape[1:], device=w.device)
+            for i, w in enumerate(leaves) for r in range(R)], 2),
+        "exchange_round_trip": (lambda: [
+            qsgd.quantize_pytree([w[r] for w in leaves], rkeys[r], BITS)
+            for r in range(R)], 2),
+    }
+    rows = {name: {"whole": [], "chunked": []} for name in draws}
+    transient = {}
+    for label in ("chunked", "whole", "whole", "chunked"):
+        prng.uniform = (chunked_uniform if label == "chunked"
+                        else whole_uniform)
+        try:
+            for name, (fn, iters) in draws.items():
+                rows[name][label].append(cuda_ms(fn, iters))
+            release()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            draws["embed_uniform"][0]()
+            transient[label] = torch.cuda.max_memory_allocated() - base
+        finally:
+            prng.uniform = whole_uniform
+    print(f"  timing threefry uniforms in one piece (prng.uniform) against "
+          f"CHUNK={prng.CHUNK}-element pieces, in the order chunked, whole, "
+          f"whole, chunked (ms per call): " + json.dumps(rows))
+    print(f"  embedding draw's peak bytes above the state: {transient}")
+    out["uniform_ms"] = sum(rows["exchange_uniforms"]["whole"]) / 2
+    out["chunking"] = dict(rows, embed_transient_bytes=transient)
     print(f"  timing uniform generator per exchange "
-          f"({len(leaves)} leaves x {R} replicas): {uniform_ms} ms")
-    out["uniform_ms"] = uniform_ms
+          f"({len(leaves)} leaves x {R} replicas): {out['uniform_ms']} ms")
     return out
 
 
 def phase_flash_timing() -> dict:
-    """flash attention at the OLMo-1B prefill layer, bf16, causal: the
-    kernel, its plain version and torch's scaled_dot_product_attention
-    (is_causal=True, a yardstick the port never calls) by CUDA events; and
+    """flash attention at the OLMo-1B prefill layer and at each of phase
+    10's dense prefill layers, bf16, causal: the kernel, its plain version
+    and torch's scaled_dot_product_attention (is_causal=True, enable_gqa
+    where K < H; a yardstick the port never calls) by CUDA events; and
     at one prefill_32k layer the kernel and SDPA alone (the plain version's
     f32 logits would take 68 GB).  Prints the kernel's achieved TFLOP/s
     (the FLOPs its bound counts, over its time) and its share of the
@@ -1354,17 +1593,20 @@ def phase_flash_timing() -> dict:
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(4)
     out = {}
-    for label, shape, iters in (("olmo_prefill", OLMO_PREFILL, 20),
-                                ("prefill_32k", PREFILL_32K, 3)):
+    layers = [("olmo_prefill", OLMO_PREFILL, 20)]
+    layers += [(f"{arch}_prefill", shape, 20)
+               for arch, shape in DENSE_ARCHS.items()]
+    for label, shape, iters in layers + [("prefill_32k", PREFILL_32K, 3)]:
         q, k, v = qkv(shape, torch.bfloat16, gen, DEVICE)
+        B, S, H, K, d = shape
+        # SDPA takes (B, H, S, d) and GQA through enable_gqa
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         row = {"ms": cuda_ms(lambda: fa.flash_attention(q, k, v), iters),
                "plain_ms": (cuda_ms(lambda: attention_ref(q, k, v), 3)
-                            if label == "olmo_prefill" else None),
+                            if label != "prefill_32k" else None),
                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True), iters)}
+                   qt, kt, vt, is_causal=True, enable_gqa=K != H), iters)}
         row["bound_ms"], row["bound_by"] = flash_bound(shape)
-        B, S, H, K, d = shape
         flops = 4 * d * B * H * attention_pairs(S, S, True, 0)
         row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
         row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -1386,16 +1628,23 @@ def serve_config():
 
 
 def phase_serving() -> dict:
-    """OLMo-1B at its published width and all 16 layers, parameters from
-    init_params(0) on the card, through the server's entry points.
+    """OLMo-1B at its published width and all 16 layers: 4 x 2048
+    prefill, generate 4 x (128 + 128)."""
+    return serve_checks(serve_config(), SERVE_BATCH, SERVE_SEQ, SERVE_PROMPT,
+                        SERVE_GEN)
 
-    (a) make_prefill_step on 4 x 2048 tokens three ways: use_flash (16
-        flash launches, no other kernel), the plain route (0 launches) and
-        the plain route in f32 compute, the yardstick.  The flash route's
+
+def serve_checks(cfg, B: int, S: int, P: int, G: int) -> dict:
+    """One model at the depth ``cfg`` gives, parameters from
+    init_params(0) on the card (timed), through the server's entry points.
+
+    (a) make_prefill_step on B x S tokens three ways: use_flash (one
+        flash launch per layer, no other kernel), the plain route (0
+        launches) and the plain route in f32 compute, the yardstick.  The flash route's
         max |d| of last-position logits from the yardstick must be at most
         1.25x the plain bf16 route's (they differ only in how the
         attention's f32 result is reached before its bf16 rounding).
-    (b) generate, 4 x (128 prompt + 128 generated) tokens, f32 caches,
+    (b) generate, B x (P prompt + G generated) tokens, f32 caches,
         use_flash set: every token in the vocabulary, 0 flash launches
         (decode is S = 1 against the cache).
     (c) decode_step's logits at the last prompt token against the plain
@@ -1408,20 +1657,29 @@ def phase_serving() -> dict:
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
 
     release()
     torch.cuda.reset_peak_memory_stats()
-    cfg = serve_config()
     flash_cfg = dataclasses.replace(cfg, use_flash=True)
     f32_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     params = M.init_params(0, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reserved = torch.cuda.memory_reserved()
     n_params = M.param_count(params)
+    n_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
     print(f"  model {cfg.name}: d_model={cfg.d_model} n_layers={cfg.n_layers}"
-          f" heads={cfg.n_heads}/{cfg.n_kv_heads} vocab={cfg.vocab_size} "
-          f"params={n_params}")
+          f" heads={cfg.n_heads}/{cfg.n_kv_heads} d_head={cfg.head_dim()} "
+          f"vocab={cfg.vocab_size} tied={cfg.tie_embeddings} "
+          f"params={n_params} ({n_bytes} B, {n_bytes / 2**30:.2f} GiB "
+          f"{cfg.param_dtype}); init_params(0) on the card {init_s:.3f} s, "
+          f"{reserved} B reserved after it")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(5)
-    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_SEQ),
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
                            generator=gen, device=DEVICE, dtype=torch.int32)
     batch = {"tokens": tokens}
 
@@ -1453,14 +1711,14 @@ def phase_serving() -> dict:
              "flash_f32": int((top[0] == top[2]).sum()),
              "plain_f32": int((top[1] == top[2]).sum())}
     none = dict.fromkeys(KERNEL_NAMES, 0)
-    print(f"  (a) prefill {SERVE_BATCH}x{SERVE_SEQ}: flash {ms_flash:.3f} ms "
+    print(f"  (a) prefill {B}x{S}: flash {ms_flash:.3f} ms "
           f"launches={l_flash}; plain {ms_plain:.3f} ms launches={l_plain}; "
           f"f32 {ms_f32:.3f} ms")
     print(f"  (a) max |last logits - f32|: flash={d_flash!r} "
           f"plain={d_plain!r} ratio={d_flash / d_plain!r} (limit 1.25); "
           f"max |f32 logits|={float(ref.abs().max())!r}; greedy next token "
-          f"agrees of {SERVE_BATCH}: {agree}")
-    check(flash.shape == (SERVE_BATCH, cfg.vocab_size), "prefill shape")
+          f"agrees of {B}: {agree}")
+    check(flash.shape == (B, cfg.vocab_size), "prefill shape")
     check(all(bool(torch.isfinite(t).all()) for t in (flash, plain, ref)),
           "non-finite prefill logits")
     check(l_flash == dict(none, flash_attention=cfg.n_layers),
@@ -1471,34 +1729,34 @@ def phase_serving() -> dict:
     del flash, plain, ref
     release()
 
-    prompt = tokens[:, :SERVE_PROMPT].contiguous()
+    prompt = tokens[:, :P].contiguous()
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    out = serve.generate(flash_cfg, params, prompt, SERVE_GEN)
+    out = serve.generate(flash_cfg, params, prompt, G)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     l_gen = read_counts()
-    steps = SERVE_PROMPT + SERVE_GEN - 1
-    new = out[:, SERVE_PROMPT:]
-    print(f"  (b) generate {SERVE_BATCH}x({SERVE_PROMPT}+{SERVE_GEN}): "
+    steps = P + G - 1
+    new = out[:, P:]
+    print(f"  (b) generate {B}x({P}+{G}): "
           f"{gen_s:.3f} s, {gen_s / steps * 1e3:.3f} ms per decode step, "
-          f"{SERVE_BATCH * SERVE_GEN / gen_s:.1f} generated tokens/s, "
-          f"{SERVE_BATCH * steps / gen_s:.1f} tokens/s through the decoder; "
+          f"{B * G / gen_s:.1f} generated tokens/s, "
+          f"{B * steps / gen_s:.1f} tokens/s through the decoder; "
           f"launches={l_gen}")
-    for r in range(SERVE_BATCH):
+    for r in range(B):
         print(f"  (b) row {r} generated: {new[r].tolist()}")
-    check(out.shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN),
+    check(out.shape == (B, P + G),
           f"generate shape {tuple(out.shape)}")
-    check(torch.equal(out[:, :SERVE_PROMPT], prompt), "prompt not kept")
+    check(torch.equal(out[:, :P], prompt), "prompt not kept")
     check(int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size,
           "a generated token lies outside the vocabulary")
     check(l_gen == none, f"decode launches {l_gen}")
 
     with torch.inference_mode():
-        caches = M.init_caches(cfg, SERVE_BATCH, SERVE_PROMPT,
+        caches = M.init_caches(cfg, B, P,
                                dtype=torch.float32, device=DEVICE)
-        for t in range(SERVE_PROMPT):
+        for t in range(P):
             logits, caches = M.decode_step(
                 params, {"tokens": prompt[:, t:t + 1]}, caches, cfg)
         dec = logits[:, 0].float()
@@ -1511,20 +1769,22 @@ def phase_serving() -> dict:
     print(f"  (c) decode vs plain prefill at the last prompt token: max |d|="
           f"{d_dec!r} (limit 2 x {d_bf16!r}, the bf16 prefill's distance "
           f"from f32); decode vs f32 prefill {float((dec - pre32).abs().max())!r}"
-          f"; greedy tokens agree {same} of {SERVE_BATCH}")
+          f"; greedy tokens agree {same} of {B}")
     check(bool(torch.isfinite(dec).all()), "non-finite decode logits")
     check(d_dec <= 2 * d_bf16, f"decode {d_dec} from prefill > 2 x {d_bf16}")
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    print(f"  max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"  max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) at "
+          f"depth {cfg.n_layers} of {cfg.name}")
     del params
     release()
     return {"launches": {k: l_flash[k] + l_plain[k] + l_gen[k]
                          for k in KERNEL_NAMES},
+            "n_params": n_params, "init_s": init_s, "n_layers": cfg.n_layers,
             "prefill_ms": {"flash": ms_flash, "plain": ms_plain,
                            "f32": ms_f32},
             "decode_ms_per_step": gen_s / steps * 1e3,
-            "generated_tokens_per_s": SERVE_BATCH * SERVE_GEN / gen_s,
+            "generated_tokens_per_s": B * G / gen_s,
             "peak_bytes": peak, "d_flash": d_flash, "d_plain": d_plain,
             "d_decode": d_dec}
 
@@ -1541,6 +1801,15 @@ def main() -> int:
 
     device = torch.device(DEVICE)
     card = card_line()
+    phase_s, since = {}, [time.perf_counter()]
+
+    def done(name: str) -> None:
+        """Print and keep the seconds since the last phase ended."""
+        now = time.perf_counter()
+        phase_s[name] = now - since[0]
+        since[0] = now
+        print(f"  phase {name}: {phase_s[name]:.1f} s")
+
     print(f"phase 1: environment  card: {card}")
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
@@ -1561,22 +1830,32 @@ def main() -> int:
     check(not spills, f"a kernel spills registers: {spills}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     print(f"  allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn={torch.backends.cudnn.allow_tf32}")
+          f"cudnn={torch.backends.cudnn.allow_tf32}; cudnn "
+          f"deterministic={torch.backends.cudnn.deterministic} "
+          f"benchmark={torch.backends.cudnn.benchmark}")
+    done("1")
 
     print("phase 2: kernels against their plain versions")
     errs = phase_kernels(device)
     qerrs = phase_qsgd_kernels(device)
     ferrs = phase_flash_kernels(device)
+    done("2")
 
     print("phase 3: ADPSGD, OLMo-1B full width, 4 layers, R=4")
     main_path = phase_main_path()
+    main_ref = main_path.pop("resume_ref")
     release()
+    done("3")
     print("phase 3b: qsgd_periodic, OLMo-1B full width, 4 layers, R=4")
     qp = phase_qsgd_periodic()
     release()
+    done("3b")
     print("phase 3c: qsgd, OLMo-1B full width, 4 layers, R=4")
     qs = phase_qsgd()
+    done("3c")
 
     print(f"phase 4: kernel timings  card: {card}")
     W = qs.pop("W")
@@ -1585,23 +1864,38 @@ def main() -> int:
     del W
     release()
     ftiming = phase_flash_timing()
+    done("4")
 
     print("phase 5: serving, OLMo-1B full width, 16 layers")
     serving = phase_serving()
+    done("5")
 
     print(f"phase 6: the telemetry clock, OLMo-1B full width, 4 layers, R=4"
           f"  card: {card}")
     clock = phase_clock(main_path)
+    done("6")
     print("phase 7: hier_adpsgd, dasgd, adacomm (time blocks), OLMo-1B full "
           "width, 4 layers, R=4")
     strategies = phase_strategies()
+    dasgd_ref = strategies["dasgd"].pop("resume_ref")
+    done("7")
     print(f"phase 8: the paper's CNN experiment, 9 strategies x 10 / 100 "
           f"Gbps  card: {card}")
     cnn = phase_cnn()
+    done("8")
+    print(f"phase 9: checkpoint / resume, OLMo-1B full width, 4 layers, R=4 "
+          f"(no cut)  card: {card}")
+    resume = phase_resume(main_ref, dasgd_ref)
+    del main_ref, dasgd_ref
+    done("9")
+    print(f"phase 10: serving MiniCPM-2B, GLM4-9B, Qwen2.5-14B at full width "
+          f"and depth  card: {card}")
+    dense = phase_dense_serving()
+    done("10")
 
     training = {"adpsgd": main_path, "qsgd_periodic": qp, "qsgd": qs}
     paths = dict(training, serving=serving, clock=clock, **strategies,
-                 cnn=cnn)
+                 cnn=cnn, resume=resume, dense_serving=dense)
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in KERNEL_NAMES}
     print("launches by path: " + json.dumps(
@@ -1644,9 +1938,18 @@ def main() -> int:
           f"uniform_ms_per_exchange={qtiming['uniform_ms']} "
           f"qsgd_periodic last-sync s_k_rel={qp['s_k_rel']} "
           f"level_flips={qp['level_flips']}")
+    print("summary: uniform chunking " + json.dumps(qtiming["chunking"]))
     print("summary: serving " + json.dumps(
         {k: v for k, v in serving.items() if k != "launches"})
           + f" flash prefill_32k={ftiming['prefill_32k']}")
+    print("summary: resume " + json.dumps(
+        {k: v for k, v in resume.items() if k != "launches"}))
+    print("summary: dense serving " + json.dumps(
+        {arch: {k: v for k, v in dense[arch].items() if k != "launches"}
+         for arch in DENSE_ARCHS}))
+    print("summary: flash timing " + json.dumps(ftiming))
+    print("summary: phase seconds " + json.dumps(phase_s)
+          + f" total {sum(phase_s.values()):.1f}")
     print("summary: clock " + json.dumps(
         {k: clock[k] for k in ("sim", "wall")}))
     print("summary: strategies " + json.dumps(

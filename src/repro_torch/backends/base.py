@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Type
 
+import numpy as np
 import torch
 
 from repro_torch.backends import ops as collective_ops
@@ -150,6 +151,20 @@ class ExecutionBackend:
         """Place an unstacked tree (the qsgd_periodic anchor) on this
         backend's device."""
         return tree_map(lambda x: x.to(self.device), tree)
+
+    def own(self, tree: Pytree) -> Pytree:
+        """Fresh contiguous tensors on this backend's device holding the
+        leaves of ``tree`` (tensors or host arrays).  The programs write
+        W, the optimizer state and the qsgd_periodic anchor in place, so
+        restored state shares no buffer with what it was restored from."""
+
+        def fresh(x):
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.asarray(x))
+            return torch.empty(tuple(x.shape), dtype=x.dtype,
+                               device=self.device).copy_(x)
+
+        return tree_map(fresh, tree)
 
     def init_opt_state(self, optimizer, W: Pytree) -> Pytree:
         return self.put_opt(

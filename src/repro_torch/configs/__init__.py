@@ -1,4 +1,5 @@
 from repro_torch.configs.base import (  # noqa: F401
     AveragingConfig, MLAConfig, MambaConfig, ModelConfig, MoEConfig,
-    RunConfig, get_config, reduced, register,
+    ParallelismPlan, RunConfig, available_configs, get_config, reduced,
+    register,
 )

@@ -4,14 +4,15 @@ A run is a ``ModelConfig`` (architecture hyper-parameters), an
 ``AveragingConfig`` (the paper's Algorithm 2 hyper-parameters) and the
 optimizer / schedule fields of ``RunConfig``.  Field names and defaults are
 the reference's, so a config built on one side means the same on the
-other.  The mesh-only ``ParallelismPlan`` and the dry-run ``InputShape``
-tables are not ported: the port's backend is one device.
+other.  ``ParallelismPlan`` is carried so a ``RunConfig`` transfers field
+for field; the port's one backend (one device) does not read it yet.  The
+dry-run ``InputShape`` tables are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from dataclasses import dataclass, field, fields
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -136,6 +137,30 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ParallelismPlan:
+    """How an architecture maps onto a mesh (the reference's fields:
+    ``plan`` replica_dp | fsdp | replica_ddp, ``placement`` replica_ddp |
+    replica_tp, ``remat_policy`` full | dots | none).  Only a mesh backend
+    reads it, and the port's comes later: until then every field keeps
+    its default (the plan of every ported config), and another value is
+    refused rather than ignored."""
+
+    plan: str = "replica_dp"
+    placement: str = "replica_ddp"
+    shard_activations: bool = True
+    remat_policy: str = "full"
+    vocab_parallel_embed: bool = True
+
+    def __post_init__(self):
+        set_ = [f"{f.name}={getattr(self, f.name)!r}" for f in fields(self)
+                if getattr(self, f.name) != f.default]
+        if set_:
+            raise NotImplementedError(
+                f"ParallelismPlan({', '.join(set_)}): the port has no mesh "
+                f"backend yet, so only the default plan runs")
+
+
+@dataclass(frozen=True)
 class AveragingConfig:
     """Paper technique hyper-parameters (Algorithm 2 + baselines)."""
 
@@ -163,6 +188,7 @@ class AveragingConfig:
 @dataclass(frozen=True)
 class RunConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
+    parallelism: ParallelismPlan = field(default_factory=ParallelismPlan)
     averaging: AveragingConfig = field(default_factory=AveragingConfig)
     optimizer: str = "momentum"   # sgd | momentum | adamw
     learning_rate: float = 0.1
@@ -174,6 +200,9 @@ class RunConfig:
     lr_decay_factor: float = 0.1
     total_steps: int = 1000
     seed: int = 0
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
 
 
 _REGISTRY: Dict[str, Any] = {}
@@ -197,6 +226,18 @@ def get_config(name: str) -> RunConfig:
                 f"unknown config '{name}'; available: {sorted(_REGISTRY)}"
             ) from exc
     return _REGISTRY[name]()
+
+
+def available_configs() -> Sequence[str]:
+    """Every registered config name, after importing each module of
+    ``repro_torch/configs``."""
+    import importlib
+    import pkgutil
+    import repro_torch.configs as pkg
+    for m in pkgutil.iter_modules(pkg.__path__):
+        if m.name != "base":
+            importlib.import_module(f"repro_torch.configs.{m.name}")
+    return sorted(_REGISTRY)
 
 
 def reduced(model: ModelConfig, **overrides) -> ModelConfig:

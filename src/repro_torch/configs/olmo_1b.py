@@ -1,5 +1,5 @@
 """OLMo-1B [dense] — non-parametric LayerNorm [arXiv:2402.00838]."""
-from repro_torch.configs.base import ModelConfig, RunConfig, register
+from repro_torch.configs.base import ModelConfig, ParallelismPlan, RunConfig, register
 
 
 @register("olmo-1b")
@@ -22,6 +22,7 @@ def cfg() -> RunConfig:
             rope_theta=10000.0,
             tie_embeddings=True,
         ),
+        parallelism=ParallelismPlan(plan="replica_dp"),
         optimizer="adamw",
         learning_rate=4e-4,
         lr_schedule="cosine",

@@ -21,7 +21,9 @@ per cent of the values differ from jax's by up to three f32 ulps
 
 A key is a pair of Python ints, worked on the host.  Only the per-element
 bits of ``uniform`` are computed on the device, in int64 tensors masked to
-32 bits (torch's uint32 has no shifts or xor on CUDA).  ``threefry2x32``
+32 bits (torch's uint32 has no shifts or xor on CUDA); ``normal`` computes
+them a chunk of the counter range at a time.  Chunking is exact: element
+i's counter is (i >> 32, i & 0xFFFFFFFF) wherever the chunk starts.  ``threefry2x32``
 is written with plain operators, so the same code hashes Python ints and
 tensors.
 """
@@ -37,6 +39,12 @@ Key = Tuple[int, int]
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
+# elements per chunk of a draw: each int64 transient of a chunk is 32 MB,
+# smaller than the large weights drawn between chunks, so the CUDA caching
+# allocator never carves a weight out of a freed transient's block (with
+# 2^26, 512 MB transients, drawing Qwen2.5-14B's 59 GB on an 80 GB card
+# left 23 GiB reserved in fragments and failed)
+CHUNK = 1 << 22
 
 
 def threefry2x32(key: Key, x0, x1):
@@ -78,17 +86,42 @@ def replica_keys(key: Key, idx: Sequence[int]) -> List[Key]:
     return [fold_in(key, int(i)) for i in idx]
 
 
-def uniform(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
-    """f32 uniforms in [0, 1) of ``shape`` on ``device``, bit-identical to
-    ``jax.random.uniform(key, shape)``."""
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+def _uniform_range(key: Key, start: int, stop: int, device) -> torch.Tensor:
+    """The flat uniforms of elements [start, stop) of a draw under
+    ``key``: each element's counter is its own index, so any range of the
+    draw is computed alone."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=device)
     b0, b1 = threefry2x32(key, idx >> 32, idx & MASK)
     del idx
     bits = ((b0 ^ b1) >> 9) | 0x3F800000
     del b0, b1
-    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(
-        tuple(shape))
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def _draw(key: Key, shape: Sequence[int], device, fn) -> torch.Tensor:
+    """``fn`` of the uniforms of ``shape``, computed ``CHUNK`` elements at
+    a time into one f32 buffer, so the int64 counters and words of a
+    large draw (about 44 bytes of transients per element) never exist
+    for more than one chunk.  A draw of one chunk is returned as
+    computed."""
+    n = math.prod(shape)
+    if n <= CHUNK:
+        return fn(_uniform_range(key, 0, n, device)).reshape(tuple(shape))
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for start in range(0, n, CHUNK):
+        stop = min(n, start + CHUNK)
+        out[start:stop] = fn(_uniform_range(key, start, stop, device))
+    return out.reshape(tuple(shape))
+
+
+def uniform(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """f32 uniforms in [0, 1) of ``shape`` on ``device``, bit-identical to
+    ``jax.random.uniform(key, shape)``, drawn in one piece: QSGD draws
+    these at every exchange, where 2^22-element chunks cost 5-8 % more
+    time on an H100 (``chip_smoke.py`` phase 4) and the transients (about
+    44 bytes per element) fit beside the training state."""
+    n = math.prod(shape)
+    return _uniform_range(key, 0, n, device).reshape(tuple(shape))
 
 
 # XLA's single-precision erf_inv, the one jax.random.normal uses: M.
@@ -118,7 +151,8 @@ def normal(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
     ``jax.random.normal(key, shape)`` draws them: sqrt(2)·erf_inv(u) with
     u uniform on [lo, 1), lo the f32 just above −1, scaled from
     ``uniform(key, shape)`` as jax scales it (the span 1 − lo rounds to 2
-    in f32)."""
+    in f32).  Drawn ``CHUNK`` elements at a time: the initial parameters
+    of a large model are drawn while most of them are already resident."""
     lo = -1.0 + 2.0 ** -24
-    u = torch.clamp_min(uniform(key, shape, device=device) * 2.0 + lo, lo)
-    return _erfinv(u) * math.sqrt(2.0)
+    return _draw(key, shape, device, lambda u: _erfinv(
+        torch.clamp_min(u * 2.0 + lo, lo)) * math.sqrt(2.0))

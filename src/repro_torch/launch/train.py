@@ -8,8 +8,11 @@ Runs on the card; ``--device cpu`` runs on the CPU.  ``--method`` offers
 every strategy of the reference, ``--backend`` the port's backends.
 ``--net`` binds a telemetry clock (``runtime/clock.py``): ``real`` times
 each program on the device, ``10gbps`` / ``100gbps`` / ``<x>gbps``
-simulate the paper's network.  The reference's flags for parts not ported
-yet (checkpoints, mesh placements) come with those parts.
+simulate the paper's network.  ``--ckpt DIR`` writes a final
+replica-averaged checkpoint; ``--ckpt-every N --ckpt-path DIR`` saves one
+every N steps (``--no-keep-replicas``: replica-averaged export
+checkpoints).  A run resumes through ``TrainerEngine.load_state``, as in
+the reference.  The mesh placements come with the mesh backend.
 ``--no-reduced`` keeps the published widths and ``--layers`` cuts depth.
 """
 from __future__ import annotations
@@ -24,13 +27,16 @@ from typing import Optional, Sequence
 import numpy as np
 
 from repro_torch.backends import available_backends, make_backend
+from repro_torch.checkpoint.io import save_checkpoint, strategy_state
 from repro_torch.configs import AveragingConfig, get_config, reduced
+from repro_torch.core.averaging import replica_mean
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.launch.steps import make_loss_fn
 from repro_torch.models import model as M
 from repro_torch.optim import get_optimizer, make_lr_schedule
 from repro_torch.runtime.clock import make_clock
-from repro_torch.runtime.engine import PeriodicEval, TrainerEngine
+from repro_torch.runtime.engine import (Checkpointer, PeriodicEval,
+                                        TrainerEngine)
 from repro_torch.strategies import available_strategies, make_strategy
 from repro_torch.tree import tree_leaves
 
@@ -80,13 +86,26 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--inner-period", type=int, default=1)
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None,
+                    help="write a final checkpoint (replica-averaged) here")
     ap.add_argument("--out", default=None)
     ap.add_argument("--eval-every", type=int, default=0,
                     help="evaluate the replica-averaged model every N steps")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="checkpoint every N steps (needs --ckpt-path)")
+    ap.add_argument("--ckpt-path", default=None,
+                    help="directory for --ckpt-every checkpoints")
+    ap.add_argument("--keep-replicas", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="periodic checkpoints keep the stacked replica "
+                         "axis (resumable); --no-keep-replicas writes "
+                         "replica-averaged export checkpoints")
     args = ap.parse_args(argv)
     if args.adacomm_mode == "time" and args.net in ("", "none"):
         ap.error("--adacomm-mode time needs a clock: pass --net "
                  "real|10gbps|100gbps|<x>gbps")
+    if args.ckpt_every and not args.ckpt_path:
+        ap.error("--ckpt-every needs --ckpt-path")
     return args
 
 
@@ -127,6 +146,9 @@ def build_engine(args: argparse.Namespace, callbacks=()):
             loss_fn, lambda: data.eval_batches(batch=args.batch * 4,
                                                device=backend.device),
             every=args.eval_every))
+    if args.ckpt_every:
+        callbacks.append(Checkpointer(args.ckpt_path, every=args.ckpt_every,
+                                      keep_replicas=args.keep_replicas))
     engine = TrainerEngine(
         loss_fn=loss_fn, optimizer=opt, params0=params0,
         n_replicas=args.replicas, data_fn=data_fn, lr_fn=lr_fn,
@@ -170,6 +192,11 @@ def main(argv: Optional[Sequence[str]] = None):
               f"compute={t['compute_s']:.3f}s comm={t['comm_s']:.3f}s "
               f"total={t['sim_wall_s']:.3f}s "
               f"bytes/node={t['bytes']:.3e}")
+    if args.ckpt:
+        save_checkpoint(args.ckpt, replica_mean(hist.final_W),
+                        step=args.steps,
+                        controller_state=strategy_state(engine.strategy))
+        print(f"  checkpoint -> {args.ckpt}")
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

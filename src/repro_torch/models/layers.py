@@ -2,7 +2,8 @@
 ``repro/models/layers.py``).
 
 Functional, as the reference: ``init_*`` builds a parameter tree (nested
-dicts of tensors), ``*_forward`` consumes it.  The weight layout is the
+dicts of tensors) from a ``core/prng.py`` key, split and drawn as the
+reference's ``jax.random`` key, and ``*_forward`` consumes it.  The weight layout is the
 reference's — dense ``w`` is ``(d_in, d_out)`` and the product is
 ``x @ w`` — so reference parameters copy across with no transposes.
 Attention is GQA, over the full sequence (the flash-attention kernel when
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 
@@ -29,13 +31,15 @@ def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, dtype,
-               bias: bool = False) -> Params:
-    w = torch.randn(d_in, d_out, generator=gen,
-                    device=gen.device) / math.sqrt(d_in)
-    p = {"w": w.to(dtype)}
+def dense_init(key: prng.Key, d_in: int, d_out: int, *, dtype,
+               bias: bool = False, device: DeviceLike = None) -> Params:
+    """The reference's draw: ``normal(key) * (1/sqrt(d_in))``, then the
+    cast to ``dtype``."""
+    device = resolve_device(device)
+    w = prng.normal(key, (d_in, d_out), device=device)
+    p = {"w": w.mul_(1.0 / math.sqrt(d_in)).to(dtype)}
     if bias:
-        p["b"] = torch.zeros(d_out, dtype=dtype, device=gen.device)
+        p["b"] = torch.zeros(d_out, dtype=dtype, device=device)
     return p
 
 
@@ -51,8 +55,10 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_norm(gen: torch.Generator, cfg: ModelConfig, d: int) -> Params:
-    dt, dev = dtype_of(cfg.param_dtype), gen.device
+def init_norm(key: prng.Key, cfg: ModelConfig, d: int, *,
+              device: DeviceLike = None) -> Params:
+    """Draws nothing: ``key`` keeps the reference's signature."""
+    dt, dev = dtype_of(cfg.param_dtype), resolve_device(device)
     if cfg.norm_type == "rmsnorm":
         return {"scale": torch.ones(d, dtype=dt, device=dev)}
     if cfg.norm_type == "layernorm":
@@ -110,15 +116,20 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def init_attention(key: prng.Key, cfg: ModelConfig, *,
+                   device: DeviceLike = None) -> Params:
+    """GQA; the key splits 6 ways as the reference's (whose MLA branch
+    uses the last two)."""
     dt = dtype_of(cfg.param_dtype)
     D, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
+    ks = prng.split(key, 6)
+    kw = dict(dtype=dt, device=device)
     b = cfg.attn_qkv_bias
     return {
-        "wq": dense_init(gen, D, H * dh, dtype=dt, bias=b),
-        "wk": dense_init(gen, D, K * dh, dtype=dt, bias=b),
-        "wv": dense_init(gen, D, K * dh, dtype=dt, bias=b),
-        "wo": dense_init(gen, H * dh, D, dtype=dt),
+        "wq": dense_init(ks[0], D, H * dh, bias=b, **kw),
+        "wk": dense_init(ks[1], D, K * dh, bias=b, **kw),
+        "wv": dense_init(ks[2], D, K * dh, bias=b, **kw),
+        "wo": dense_init(ks[3], H * dh, D, **kw),
     }
 
 
@@ -217,15 +228,18 @@ def _scatter_rows(buf: torch.Tensor, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def init_mlp(key: prng.Key, cfg: ModelConfig, *,
+             device: DeviceLike = None) -> Params:
     """SwiGLU (every dense config but whisper's gelu, which comes with the
     audio family)."""
     dt = dtype_of(cfg.param_dtype)
     D, Fd = cfg.d_model, cfg.d_ff
+    ks = prng.split(key, 3)
+    kw = dict(dtype=dt, device=device)
     return {
-        "w_gate": dense_init(gen, D, Fd, dtype=dt),
-        "w_up": dense_init(gen, D, Fd, dtype=dt),
-        "w_down": dense_init(gen, Fd, D, dtype=dt),
+        "w_gate": dense_init(ks[0], D, Fd, **kw),
+        "w_up": dense_init(ks[1], D, Fd, **kw),
+        "w_down": dense_init(ks[2], Fd, D, **kw),
     }
 
 

@@ -10,11 +10,12 @@ layers run in a plain Python loop.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -37,30 +38,28 @@ def _check_ported(cfg: ModelConfig) -> None:
             f"{cfg.name}: not ported yet: {', '.join(missing)}")
 
 
-def init_params(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
+def init_params(seed: int, cfg: ModelConfig, *,
                 device: DeviceLike = None) -> Params:
-    """Random parameters from ``seed`` (an int, or a ``torch.Generator``
-    whose device they are made on).  The draws differ from the
-    reference's ``jax.random`` ones; to compare the two, copy the
-    reference's parameters across with ``interop.params_from_numpy``."""
+    """Random parameters from ``seed``, the reference's
+    ``init_params(jax.random.PRNGKey(seed), cfg)``: the same key splits
+    and ``jax.random.normal`` draws (``core/prng.py``, a few ulps), each
+    scaled and then cast to ``param_dtype`` as there."""
     _check_ported(cfg)
-    if isinstance(seed, torch.Generator):
-        gen = seed
-    else:
-        gen = torch.Generator(device=resolve_device(device))
-        gen.manual_seed(int(seed))
+    device = resolve_device(device)
     dt = L.dtype_of(cfg.param_dtype)
-    embed = torch.randn(cfg.padded_vocab(), cfg.d_model, generator=gen,
-                        device=gen.device) * 0.02
+    ks = prng.split(prng.prng_key(seed), cfg.n_layers + 4)
+    embed = prng.normal(ks[0], (cfg.padded_vocab(), cfg.d_model),
+                        device=device)
     p: Params = {
-        "embed": embed.to(dt),
-        "final_norm": L.init_norm(gen, cfg, cfg.d_model),
-        "blocks": [T.init_block(gen, cfg, i) for i in range(cfg.n_layers)],
+        "embed": embed.mul_(0.02).to(dt),
+        "final_norm": L.init_norm(ks[1], cfg, cfg.d_model, device=device),
+        "blocks": [T.init_block(ks[2 + i], cfg, i, device=device)
+                   for i in range(cfg.n_layers)],
     }
     if not cfg.tie_embeddings:
-        head = torch.randn(cfg.d_model, cfg.padded_vocab(), generator=gen,
-                           device=gen.device) / (cfg.d_model ** 0.5)
-        p["lm_head"] = head.to(dt)
+        head = prng.normal(ks[-2], (cfg.d_model, cfg.padded_vocab()),
+                           device=device)
+        p["lm_head"] = head.div_(cfg.d_model ** 0.5).to(dt)
     return p
 
 

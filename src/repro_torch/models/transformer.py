@@ -8,6 +8,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike
 from repro_torch.models import layers as L
 
@@ -20,13 +21,17 @@ def _check_attention_block(cfg: ModelConfig, layer_idx: int) -> None:
             f"layer {layer_idx}: only dense attention blocks are ported")
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int) -> Params:
+def init_block(key: prng.Key, cfg: ModelConfig, layer_idx: int, *,
+               device: DeviceLike = None) -> Params:
+    """The key splits 4 ways as the reference's: norm1, the mixer, norm2,
+    the feed-forward."""
     _check_attention_block(cfg, layer_idx)
-    p: Params = {"norm1": L.init_norm(gen, cfg, cfg.d_model),
-                 "attn": L.init_attention(gen, cfg)}
+    ks = prng.split(key, 4)
+    p: Params = {"norm1": L.init_norm(ks[0], cfg, cfg.d_model, device=device),
+                 "attn": L.init_attention(ks[1], cfg, device=device)}
     if cfg.d_ff > 0:
-        p["norm2"] = L.init_norm(gen, cfg, cfg.d_model)
-        p["mlp"] = L.init_mlp(gen, cfg)
+        p["norm2"] = L.init_norm(ks[2], cfg, cfg.d_model, device=device)
+        p["mlp"] = L.init_mlp(ks[3], cfg, device=device)
     return p
 
 

@@ -18,8 +18,9 @@ routes their outputs:
 A telemetry clock (``runtime/clock.py``) rides the backend, which wraps
 every program it lowers, and its Timeline rides the engine
 (``engine.timeline``; ``TrainHistory.timing``).  A small callback bus hangs
-off the loop (variance probing, periodic eval).  Checkpoints of the
-reference are not ported yet.
+off the loop (variance probing, periodic eval, checkpoints); a run resumes
+from a checkpoint through ``TrainerEngine.load_state``
+(``checkpoint/io.py``).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from repro_torch.core import prng
 from repro_torch.device import DeviceLike
 from repro_torch.runtime.clock import Clock, Timeline
 from repro_torch.strategies import CommunicationStrategy, make_strategy
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 Pytree = Any
 
@@ -128,6 +130,35 @@ class PeriodicEval(Callback):
             engine.history.eval_steps.append(k)
 
 
+class Checkpointer(Callback):
+    """Save (W, opt_state, strategy state, clock state) every ``every``
+    steps, so a restored run continues the identical sync schedule.
+
+    ``keep_replicas=False`` collapses W to the replica mean and drops the
+    optimizer state: an export checkpoint for serving or eval, which
+    ``TrainerEngine.load_state`` refuses (it needs the replica axis)."""
+
+    def __init__(self, path: str, every: int, keep_replicas: bool = True):
+        self.path = path
+        self.every = max(1, every)
+        self.keep_replicas = keep_replicas
+
+    def on_iteration_end(self, engine, k, metrics):
+        # after any sync of iteration k: the saved W must match the saved
+        # (post-observe) strategy state
+        if (k + 1) % self.every == 0:
+            self.save(engine, k + 1)
+
+    def save(self, engine: "TrainerEngine", step: int) -> None:
+        from repro_torch.checkpoint.io import save_checkpoint, strategy_state
+        W = engine.W if self.keep_replicas else avg.replica_mean(engine.W)
+        opt = engine.opt_state if self.keep_replicas else None
+        save_checkpoint(self.path, W, opt_state=opt, step=step,
+                        controller_state=strategy_state(engine.strategy),
+                        clock_state=(engine.clock.state_dict()
+                                     if engine.clock else None))
+
+
 class TrainerEngine:
     """Owns state + loop; the strategy owns policy + programs.
 
@@ -169,6 +200,7 @@ class TrainerEngine:
         self.strategy.compile(loss_fn, optimizer, backend=self.backend)
         self.strategy.bind_clock(clock)
         self._optimizer = optimizer
+        self._n_replicas = n_replicas
         self.loss_fn = loss_fn
         self.data_fn = data_fn
         self.lr_fn = lr_fn
@@ -178,6 +210,7 @@ class TrainerEngine:
             self.callbacks.append(VarianceProbe(track_variance_every))
         # the reference's key stream: fold (k, j) into PRNGKey(seed + 17)
         self._base_key = prng.prng_key(seed + 17)
+        self._comm_event_base = 0      # restored events count elsewhere
         self.history = TrainHistory(method=self.strategy.name)
         self.W: Optional[Pytree] = None
         self.opt_state: Optional[Pytree] = None
@@ -186,12 +219,73 @@ class TrainerEngine:
                                         n_replicas)
             self.opt_state = self.backend.init_opt_state(optimizer, self.W)
 
+    def load_state(self, W: Pytree, opt_state: Optional[Pytree] = None,
+                   strategy_state: Optional[Dict] = None,
+                   clock_state: Optional[Dict] = None) -> None:
+        """Install checkpointed state (replica-stacked W) for resume; the
+        leaves may be tensors on any device or host arrays (a checkpoint
+        of either package).  Export checkpoints
+        (``Checkpointer(keep_replicas=False)``) lack the replica axis and
+        are refused.  The state is copied into fresh buffers on the
+        backend's device, since the programs write it in place: a tree
+        loaded onto the host (``load_checkpoint(path, "cpu")``) is copied
+        onto the card once, while one loaded onto the card is held there
+        twice until the caller drops it; with
+        params0 the leaves take the engine's own tree (a checkpoint keeps
+        no empty dict, such as OLMo's parameterless norms).
+        ``opt_state=None`` keeps the engine's fresh optimizer state: the
+        schedule still resumes exactly, but momentum and adamw restart
+        from zero, so the losses are not bit-identical."""
+        got = [tuple(x.shape) for x in tree_leaves(W)]
+        if self.W is not None:
+            want = [tuple(x.shape) for x in tree_leaves(self.W)]
+        else:
+            # no params0: every leaf must still lead with the replica axis
+            # this engine was built for
+            want = [(self._n_replicas,) + s[1:] for s in got]
+        if want != got:
+            raise ValueError(
+                "checkpoint does not match the engine's replica-stacked "
+                "state (was it saved with keep_replicas=False? such "
+                f"checkpoints are export-only): {got[:1]} vs {want[:1]}")
+        if self.W is not None:
+            W = tree_unflatten(self.W, tree_leaves(W))
+        self.W = None                  # free the old buffers first
+        self.W = self.backend.put_params(self.backend.own(W))
+        if opt_state is not None:
+            if self.opt_state is not None:
+                shapes = [[tuple(x.shape) for x in tree_leaves(t)]
+                          for t in (opt_state, self.opt_state)]
+                if shapes[0] != shapes[1]:
+                    raise ValueError("checkpoint's optimizer state does not "
+                                     "match the engine's optimizer")
+                opt_state = tree_unflatten(self.opt_state,
+                                           tree_leaves(opt_state))
+            self.opt_state = None
+            self.opt_state = self.backend.put_opt(
+                self.backend.own(opt_state), self.W)
+        elif self.opt_state is None:
+            # no optimizer state anywhere: a fresh one (docstring caveat)
+            self.opt_state = self.backend.init_opt_state(
+                self._optimizer, self.W)
+        # the clock before the strategy: a restored time-driven controller
+        # keeps its block start in clock coordinates
+        if clock_state is not None and self.clock is not None:
+            self.clock.load_state_dict(clock_state)
+        if strategy_state is not None:
+            from repro_torch.checkpoint.io import restore_strategy
+            restore_strategy(self.strategy, strategy_state)
+        # n_syncs counts per history: syncs before the restore belong to
+        # the saved run's
+        self._comm_event_base = self.strategy.n_comm_events
+
     def run(self, start_step: int = 0,
             num_steps: Optional[int] = None) -> TrainHistory:
         """Run iterations [start_step, start_step + num_steps); call again
-        with the next ``start_step`` to continue."""
+        with the next ``start_step`` to continue, or to resume after
+        ``load_state``: the strategy's schedule state carries across."""
         if self.W is None:
-            raise RuntimeError("no parameters: pass params0")
+            raise RuntimeError("no parameters: pass params0 or load_state()")
         stop = self.total_steps if num_steps is None \
             else min(self.total_steps, start_step + num_steps)
         hist = self.history
@@ -260,7 +354,7 @@ class TrainerEngine:
         if defer_loss:
             hist.losses[:] = [float(v) for v in hist.losses]
         hist.wall_s += time.time() - t0
-        hist.n_syncs = self.strategy.n_comm_events
+        hist.n_syncs = self.strategy.n_comm_events - self._comm_event_base
         if tl is not None:
             hist.timing = dict(tl.summary(), clock=self.clock.kind,
                                sim_wall_s=self.clock.now())

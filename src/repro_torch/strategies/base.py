@@ -15,6 +15,9 @@ A ``CommunicationStrategy`` owns everything policy-specific:
   mode).
 * ``sync_op()`` — the descriptor of one communication event, and the sole
   pricing source of the accounting hooks.
+* ``state_dict() / load_state_dict()`` — adaptive state (p, C2, counters;
+  device state under ``_arrays``) for checkpoint / resume: a restored
+  strategy continues the same sync schedule.
 """
 from __future__ import annotations
 
@@ -109,6 +112,13 @@ class CommunicationStrategy:
         coll = self.sync_op().collective or "all_reduce"
         return CommStats(per, ev, comm_time(per, ev, n_nodes, bandwidth,
                                             collective=coll))
+
+    # ------------------------------------------------------------ checkpoint
+    def state_dict(self) -> Dict[str, Any]:
+        return {"comm_events": self._comm_events}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self._comm_events = int(state.get("comm_events", 0))
 
 
 _STRATEGIES: Dict[str, Type[CommunicationStrategy]] = {}

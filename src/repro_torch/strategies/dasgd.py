@@ -20,8 +20,18 @@ programs make the pair:
   ``s_k_at=(snapshot_step, S_k)``, attributed to the snapshot iteration.
 
 Warm-up iterations (``warmup_full_sync_steps``) use the immediate full
-sync.  The in-flight correction is not yet checkpointed (the reference's
-``state_dict()["_arrays"]``): checkpoints are not ported.
+sync.
+
+The in-flight correction is training state.  A checkpoint is a
+synchronisation point: ``state_dict`` fetches the in-flight op, keeps the
+fetched pair live, and exports the correction and its probe under
+``_arrays`` with the due step and the snapshot step, so a resumed run
+applies the identical correction at the identical iteration and reports
+the identical S_k.  The correction is ``mean_delta``'s own f32 buffer,
+which no program writes (the local steps write W; ``sync_apply`` reads
+it), so the state holds it as it is.  A run segment that ends between a
+snapshot and its apply has counted the communication event but not yet
+recorded its probe: the probe belongs to the segment that fetches it.
 """
 from __future__ import annotations
 
@@ -85,6 +95,46 @@ class DaSGDStrategy(PeriodicAveragingStrategy):
         if isinstance(p, InFlightOp):
             p = p.fetch()
         return p
+
+    def state_dict(self) -> Dict[str, Any]:
+        d = super().state_dict()
+        d["apply_at"] = self._apply_at
+        d["snap_at"] = self._snap_at
+        pending = self._fetch_pending()    # a checkpoint is a sync point
+        if pending is not None:
+            self._pending = pending        # keep the fetched pair live
+            delta, s_k = pending
+            arrays = d.setdefault("_arrays", {})
+            arrays["pending_delta"] = delta
+            if s_k is not None:
+                arrays["pending_s_k"] = s_k
+        return d
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        super().load_state_dict(state)
+        self._apply_at = state.get("apply_at")
+        if self._apply_at is not None:
+            self._apply_at = int(self._apply_at)
+        self._snap_at = state.get("snap_at")
+        if self._snap_at is not None:
+            self._snap_at = int(self._snap_at)
+        arrays = state.get("_arrays") or {}
+        if "pending_delta" in arrays:
+            pending = arrays["pending_delta"]
+            s_k = arrays.get("pending_s_k")
+            if self.backend is not None:
+                pending = self.backend.put_params(self.backend.own(pending))
+                if s_k is not None:
+                    s_k = self.backend.own(s_k)
+            # a checkpoint taken before the probe was reported carries
+            # none: apply without reporting it again
+            self._pending = (pending, s_k)
+        else:
+            # nothing in flight: drop any stale due step so apply never
+            # meets a missing correction
+            self._pending = None
+            self._apply_at = None
+            self._snap_at = None
 
     def actions(self, k: int):
         acts = [STEP]

@@ -3,11 +3,12 @@
 
 ``PeriodicAveragingStrategy``: a local step every iteration and the
 replica-averaging sync on the schedule its ``PeriodController`` picks
-(constant / decreasing / adaptive — Algorithms 1 and 2).
+(constant / decreasing / adaptive — Algorithms 1 and 2).  The
+controller's state rides the strategy's ``state_dict`` (checkpoints).
 """
 from __future__ import annotations
 
-from typing import Optional, Type
+from typing import Any, Dict, Optional, Type
 
 from repro_torch.backends.ops import all_mean_op, full_step_op
 from repro_torch.configs.base import AveragingConfig
@@ -72,6 +73,15 @@ class PeriodicAveragingStrategy(CommunicationStrategy):
     @property
     def period(self) -> int:
         return self.controller.period
+
+    def state_dict(self) -> Dict[str, Any]:
+        d = super().state_dict()
+        d.update(self.controller.state_dict())
+        return d
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        super().load_state_dict(state)
+        self.controller.load_state_dict(state)
 
 
 @register_strategy

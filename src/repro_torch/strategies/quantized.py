@@ -13,10 +13,16 @@ replica quantizes its delta from the anchor into the byte-true payload
 (int8 levels plus per-tensor norms, ``ops.quantized_all_mean_op``), the
 receiver dequantizes, and anchor + mean(dequantized deltas) becomes the
 agreed value.  S_k is measured on the dequantized deltas, the statistic
-the controller reads.  The anchor is not yet checkpointed (the reference's
-``state_dict()["_arrays"]``): checkpoints are not ported.
+the controller reads.  The anchor is training state: ``state_dict``
+exports a copy of it under ``_arrays`` (the live anchor moves in place at
+every sync), so a resumed run goes on with quantized exchanges instead of
+paying another full-precision seeding sync.
 """
 from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
 
 from repro_torch.backends.ops import (opt_mean_op, qsgd_step_op,
                                       quantized_all_mean_op)
@@ -24,6 +30,7 @@ from repro_torch.core.controller import ADPSGDController
 from repro_torch.strategies.base import (STEP, SYNC, CommunicationStrategy,
                                          register_strategy)
 from repro_torch.strategies.periodic import PeriodicAveragingStrategy
+from repro_torch.tree import tree_map
 
 
 @register_strategy
@@ -92,3 +99,18 @@ class QSGDPeriodicStrategy(PeriodicAveragingStrategy):
 
         programs[SYNC] = sync_prog
         return programs
+
+    def state_dict(self) -> Dict[str, Any]:
+        d = super().state_dict()
+        if self._anchor is not None:
+            d["_arrays"] = {"anchor": tree_map(torch.clone, self._anchor)}
+        return d
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        super().load_state_dict(state)
+        arrays = state.get("_arrays") or {}
+        if "anchor" in arrays:
+            anchor = arrays["anchor"]
+            if self.backend is not None:
+                anchor = self.backend.put_replicated(self.backend.own(anchor))
+            self._anchor = anchor

@@ -313,6 +313,33 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, H, K, d, dtype, tol,
     assert torch.equal(out, again)
 
 
+# (B, S, H, K, d) of one prefill layer of each dense config served:
+# MiniCPM-2B (MHA, d 64), GLM4-9B (16:1 GQA) and Qwen2.5-14B (5:1 GQA)
+DENSE_PREFILL = [(1, 2048, 36, 36, 64), (1, 2048, 32, 2, 128),
+                 (1, 2048, 40, 8, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,d", DENSE_PREFILL)
+def test_flash_attention_dense_prefill_layers(cuda, B, S, H, K, d):
+    """bf16, causal, at the prefill layers of the three dense configs,
+    against the plain version (atol = rtol = 2e-2) and bitwise repeated."""
+    g = torch.Generator(device=cuda).manual_seed(H * d + K)
+    q = torch.randn(B, S, H, d, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(B, S, K, d, generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=True)
+    again = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    want = torch_ref.attention_ref(q, k, v, causal=True)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert torch.equal(out, again)
+
+
 @pytest.mark.cuda
 def test_flash_attention_refuses_on_the_card(cuda):
     q = torch.zeros(1, 200, 2, 64, device=cuda)

@@ -11,6 +11,7 @@ from repro.configs import reduced as jax_reduced
 from repro.models import layers as jax_layers
 from repro.models import model as jax_model
 from repro_torch.configs import get_config, reduced
+from repro_torch.core import prng
 from repro_torch.interop import params_from_numpy, params_to_numpy
 from repro_torch.models import layers as torch_layers
 from repro_torch.models import model as torch_model
@@ -92,7 +93,8 @@ def test_apply_rope_half_split(frac):
 
 
 def test_nonparametric_layernorm():
-    assert torch_layers.init_norm(torch.Generator(), TCFG, 128) == {}
+    assert torch_layers.init_norm(prng.prng_key(0), TCFG, 128,
+                                  device="cpu") == {}
     x = np.random.RandomState(2).randn(2, 5, 128).astype(np.float32) * 3 + 1
     want = jax_layers.norm_forward({}, jnp.asarray(x), JCFG)
     got = torch_layers.norm_forward({}, torch.from_numpy(x), TCFG)
@@ -114,3 +116,25 @@ def test_default_device_needs_cuda():
         pytest.skip("checks the behaviour without a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA"):
         torch_model.init_params(0, TCFG)
+
+
+INIT_ARCHS = ["olmo-1b", "minicpm-2b", "glm4-9b", "qwen2.5-14b"]
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("arch", INIT_ARCHS)
+def test_init_params_draws_the_reference_init(arch, seed):
+    """Each leaf of ``init_params(seed)`` equals the reference's
+    ``init_params(PRNGKey(seed))`` at the reduced widths, within
+    ``prng.normal``'s bound (rtol 5e-7, three f32 ulps); zero biases and
+    unit norm scales exactly."""
+    jcfg = jax_reduced(jax_get_config(arch).model, max_seq_len=32)
+    tcfg = reduced(get_config(arch).model, max_seq_len=32)
+    want = jax_model.init_params(jax.random.PRNGKey(seed), jcfg)
+    got = torch_model.init_params(seed, tcfg, device="cpu")
+    assert jax.tree_util.tree_structure(params_to_numpy(got)) == \
+        jax.tree_util.tree_structure(want)
+    for a, b in zip(tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        assert a.dtype == torch.float32 and tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-7,
+                                   atol=0)

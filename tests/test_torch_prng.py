@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import qsgd as jax_qsgd
 from repro_torch.core import prng
@@ -79,3 +80,23 @@ def test_normal_matches_reference(shape):
     got = prng.normal(_pair(jk), shape, device="cpu")
     assert tuple(got.shape) == shape and got.numpy().dtype == np.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=5e-7, atol=0)
+
+
+@pytest.mark.parametrize("fn", ["uniform", "normal"])
+@pytest.mark.parametrize("chunk", [1, 7, 64, 1000])
+def test_chunked_draw_bit_identical(fn, chunk, monkeypatch):
+    """A draw made ``chunk`` elements at a time is ``jax.random``'s draw
+    (each element's counter is its index, wherever its chunk starts):
+    the chunked uniforms under ``normal`` bit for bit, the normals within
+    ``normal``'s bound."""
+    monkeypatch.setattr(prng, "CHUNK", chunk)
+    jk = jax.random.fold_in(jax.random.PRNGKey(5), 3)
+    want = np.asarray(getattr(jax.random, fn)(jk, (33, 17)))
+    if fn == "uniform":
+        got = prng._draw(_pair(jk), (33, 17), "cpu", lambda u: u)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      want.view(np.uint32))
+    else:
+        got = prng.normal(_pair(jk), (33, 17), device="cpu")
+        np.testing.assert_allclose(got.numpy(), want, rtol=5e-7, atol=0)
+    assert tuple(got.shape) == (33, 17)
