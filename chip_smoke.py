@@ -33,16 +33,22 @@ both clocks.  Phase 9 checkpoints phase 3's run after 8 steps and phase
 7's dasgd run with a correction in flight, resumes each through the
 training CLI's setup and ``TrainerEngine.load_state``, and holds both to
 the uninterrupted runs bit for bit; phase 10 serves MiniCPM-2B, GLM4-9B
-and Qwen2.5-14B at full width and depth as phase 5 serves OLMo-1B.  Each
-path is driven with the launch counts set to 0 just before it and read
-just after.
+and Qwen2.5-14B at full width and depth as phase 5 serves OLMo-1B.  Phase
+11 trains DeepSeek-V2-Lite (MLA, routed and shared experts, a dense first
+layer) at full width, cut to 2 layers, with ADPSGD at R = 4 (the fused
+mean + sqdev kernel in every sync, at the expert leaves' shapes); phase 12
+serves DeepSeek-V2-Lite at full width and depth and Mixtral-8x22B at full
+width, cut to 4 of 56 layers (neither reaches flash attention, in the
+reference as here).  Each path is driven with the launch counts set to 0
+just before it and read just after.
 
 Phases: 1 environment and build (no kernel may spill registers; TF32
 off, deterministic cuDNN); 2 kernels against their plain versions; 3,
 3b, 3c the training paths; 4 kernel timings; 5 serving; 6 the clock; 7
 the last three strategies; 8 the CNN experiment; 9 checkpoint / resume;
-10 the dense configs served.  Each phase prints its seconds.  Any failed
-check exits non-zero.
+10 the dense configs served; 11 the MoE family trained; 12 the MoE family
+served.  Each phase prints its seconds.  Any failed check exits
+non-zero.
 The card's ``nvidia-smi`` name and power limit stand on the line before
 the ``{"kernels": [...]}`` line, and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -97,9 +103,18 @@ EMBED_SHAPE = (50304, 2048)
 LEAF_SHAPES = [(2048, 2048), (2048, 8192), (8192, 2048), EMBED_SHAPE]
 CNN_LEAF_SHAPES = [(3, 3, 3, 16), (16,), (3, 3, 16, 32), (32,), (2048, 256),
                    (256,), (256, 10), (10,)]
+# each distinct leaf shape of phase 11's DeepSeek (R = 4) that OLMo's have
+# not: the experts, the router, MLA's projections and norm, the shared
+# experts, layer 0's dense MLP, the norms, the embedding and the head
+DEEPSEEK_LEAF_SHAPES = [(64, 2048, 1408), (64, 1408, 2048), (2048, 64),
+                        (2048, 3072), (2048, 576), (512, 4096), (512,),
+                        (2048, 2816), (2816, 2048), (2048, 10944),
+                        (10944, 2048), (2048,), (102400, 2048),
+                        (2048, 102400)]
 KERNEL_CASES = ([(2, (100,)), (8, (33, 7)), (16, (1024,)), (4, (5, 4, 3))]
                 + [(4, s) for s in LEAF_SHAPES]
-                + [(CNN_R, s) for s in CNN_LEAF_SHAPES])
+                + [(CNN_R, s) for s in CNN_LEAF_SHAPES]
+                + [(4, s) for s in DEEPSEEK_LEAF_SHAPES])
 # (shape, bits): the reference's QSGD kernel-test cases, then the leaves
 QSGD_CASES = ([((n,), b) for n in (7, 1000, 1024, 4097) for b in (4, 8)]
               + [((33, 17), 8)]
@@ -126,6 +141,19 @@ DENSE_BATCH, DENSE_SEQ, DENSE_PROMPT, DENSE_GEN = 1, 2048, 128, 32
 # phase 9: phase 3 split 8 + 8; phase 7's dasgd split between a snapshot
 # and its apply
 RESUME_AT = 8
+# phase 11: DeepSeek-V2-Lite at full width, 2 layers (the dense layer 0 and
+# one MoE layer), R = 4, adamw, MAIN_ARGV's other flags
+DEEPSEEK_ARGV = ["--arch", "deepseek-v2-lite-16b", "--backend", "vmap",
+                 "--no-reduced", "--layers", "2", "--replicas", "4",
+                 "--batch", "4", "--seq", "128", "--warmup-sync", "2",
+                 "--p-init", "2", "--lr", "4e-4", "--seed", "0",
+                 "--method", "adpsgd", "--steps", "16"]
+DEEPSEEK_LEAVES = 27
+DEEPSEEK_PARAMS = 1_085_287_424     # per replica, 2 layers
+# phase 12: DeepSeek-V2-Lite at full width and depth, Mixtral-8x22B at full
+# width cut to 4 of 56 layers; 1 x 2048 prefill, generate 1 x (128 + 32)
+MOE_SERVE = {"deepseek-v2-lite-16b": (0, 15_706_484_224, 2_661_150_208),
+             "mixtral-8x22b": (4, 10_418_903_040, 3_171_145_728)}
 
 
 class CheckFailed(Exception):
@@ -240,8 +268,10 @@ def flash_bound(shape, causal: bool = True, window: int = 0,
 def phase_kernels(device) -> dict:
     """The CUDA mean_and_sqdev against its plain version on the card, and
     run twice for a bitwise repeat.  Tolerances: mean atol 1e-6 (one f32
-    rounding of the same four-term sum); sq rtol 1e-5, or 1e-4 on the
-    embedding, where the order of summation over 4e8 terms differs."""
+    rounding of the same four-term sum); sq rtol 1e-5, or 1e-4 on a leaf
+    of more than 1e8 elements (the embeddings, DeepSeek's head and
+    experts), where the order of summation over 4e8 terms and more
+    differs."""
     import torch
     from repro_torch.kernels.param_variance import mean_and_sqdev
     from repro_torch.kernels.ref import mean_and_sqdev_ref
@@ -257,7 +287,7 @@ def phase_kernels(device) -> dict:
         torch.cuda.synchronize()
         mean_err = float((m - m_ref).abs().max())
         sq_rel = abs(float(sq) - float(sq_ref)) / abs(float(sq_ref))
-        tol = 1e-4 if shape == EMBED_SHAPE else 1e-5
+        tol = 1e-4 if math.prod(shape) > 1e8 else 1e-5
         print(f"  kernel R={R} shape={shape}: sq={float(sq):.9e} "
               f"plain={float(sq_ref):.9e} rel={sq_rel:.3e} "
               f"mean_abs_err={mean_err:.3e} bitwise_repeat="
@@ -423,18 +453,50 @@ def flash_cases_per_instance():
     return cases
 
 
-def phase_flash_kernels(device) -> dict:
+# The wgmma instance's P enters p·v as two bf16 parts, hi + lo, within
+# 2^-16 of P (|P - hi| <= 2^-8 |P|, and lo rounds P - hi to 8 bits): its f32
+# output lies within 2^-16 · Σ_j w_j |v_j| of exact p·v.  Allowing as much
+# again for the f32 arithmetic of both sides (scores, exponentials, sums in
+# another order), two bf16 roundings leave |kernel - plain| within one bf16
+# ulp of the larger of the two plus 2^-15 · Σ_j w_j |v_j| (attention_ref of
+# |v|).  Near zero an ulp is finer than any f32 sum can resolve, so "one ulp
+# everywhere" alone cannot hold: on the CPU the plain version itself lies up
+# to 8 ulps from a float64 evaluation at (1, 1024, 4, 4, 128).
+P_SPLIT_REL = 2.0 ** -15
+
+
+def bf16_ulp_stats(out, want, scale) -> dict:
+    """bf16 ``out`` against bf16 ``want``: the count of elements that
+    differ at all, the largest distance in ulps of the larger magnitude,
+    and the largest excess of |out - want| over one ulp plus
+    ``P_SPLIT_REL · scale`` (must be <= 0)."""
+    import torch
+
+    big = torch.maximum(out.float().abs(), want.float().abs())
+    big = torch.where(big > 0, big, torch.ones_like(big))   # d is 0 there
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    d = (out.float() - want.float()).abs()
+    return {"differ": int((d > 0).sum()), "n": d.numel(),
+            "max_ulps": float((d / ulp).max()),
+            "excess": float((d - ulp - P_SPLIT_REL * scale).max())}
+
+
+def phase_flash_kernels(device, ulp_check: bool = True) -> dict:
     """flash attention against its plain version (attention_ref) on the
     card: first the cases of every bf16 instance (a single 128 x 128 tile
     before anything larger), then the reference's kernel-test cases (4
     shapes x f32/bf16 x window 0/64, causal, and the block-size case) at
     its tolerances, atol = rtol = 2e-5 in f32 and 2e-2 in bf16 (online
-    against exact softmax; one bf16 rounding of the output, and of P in
-    the wgmma instance); the prefill layers of phase 10's three dense
-    configs, the OLMo-1B prefill layer, GLM4-9B's GQA heads and
-    causal=False in bf16.  Every call is run twice for a bitwise repeat,
-    adds 1 to the launch count each time, and a length the reference
-    refuses raises."""
+    against exact softmax; one bf16 rounding of the output); the prefill
+    layers of phase 10's three dense configs, the OLMo-1B prefill layer,
+    GLM4-9B's GQA heads and causal=False in bf16.  Every call is run twice
+    for a bitwise repeat, adds 1 to the launch count each time, and a
+    length the reference refuses raises.  On the wgmma instance (bf16, d
+    64 and 128) each case also prints the share of output elements that
+    differ from the plain version, their distance in bf16 ulps and the
+    excess over the bound of ``P_SPLIT_REL``; with ``ulp_check`` no element
+    may exceed it.  Returns the largest error and the wgmma cases'
+    totals."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import attention_ref
@@ -454,6 +516,7 @@ def phase_flash_kernels(device) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
     max_err = 0.0
+    wgmma = {"differ": 0, "n": 0, "max_ulps": 0.0, "excess": -math.inf}
     for shape, dtype, causal, window, blocks in cases:
         q, k, v = qkv(shape, dtype, gen, device)
         before = fa.flash_attention.launches
@@ -468,9 +531,24 @@ def phase_flash_kernels(device) -> dict:
         excess = float(((out.float() - want.float()).abs()
                         - tol * want.float().abs()).max())
         repeat = torch.equal(out, again)
+        ulps = ""
+        on_wgmma = dtype == bf16 and shape[-1] in (64, 128)
+        if on_wgmma:
+            scale = attention_ref(q.float(), k.float(), v.float().abs(),
+                                  causal=causal, window=window)
+            st = bf16_ulp_stats(out, want, scale)
+            del scale
+            ulps = (f" differ={st['differ']}/{st['n']} "
+                    f"({st['differ'] / st['n']:.3e}) "
+                    f"max_ulps={st['max_ulps']:.3f} "
+                    f"excess={st['excess']:.3e}")
+            for key in ("differ", "n"):
+                wgmma[key] += st[key]
+            for key in ("max_ulps", "excess"):
+                wgmma[key] = max(wgmma[key], st[key])
         print(f"  flash {shape} {str(dtype)[6:]} causal={causal} "
               f"window={window} {blocks or ''}: max_abs_err={err:.3e} "
-              f"(atol=rtol={tol}) bitwise_repeat={repeat}")
+              f"(atol=rtol={tol}) bitwise_repeat={repeat}{ulps}")
         check(out.shape == q.shape and out.dtype == dtype,
               f"flash output {tuple(out.shape)} {out.dtype} at {shape}")
         check(excess <= tol, f"flash differs from plain by {err} at {shape}")
@@ -478,8 +556,18 @@ def phase_flash_kernels(device) -> dict:
         check(fa.flash_attention.launches == before + 2,
               f"flash launch count moved by "
               f"{fa.flash_attention.launches - before}, not 2")
+        if on_wgmma and ulp_check:
+            check(st["excess"] <= 0.0,
+                  f"flash (wgmma) exceeds one bf16 ulp + {P_SPLIT_REL} x "
+                  f"sum w|v| by {st['excess']} at {shape}")
         max_err = max(max_err, err)
         del q, k, v, out, again, want
+    wgmma["share"] = wgmma["differ"] / wgmma["n"]
+    print(f"  flash wgmma instance, all bf16 d 64/128 cases: {wgmma['differ']}"
+          f" of {wgmma['n']} elements differ from plain (share "
+          f"{wgmma['share']!r}); max {wgmma['max_ulps']!r} ulps; largest "
+          f"excess over one ulp + "
+          f"{P_SPLIT_REL} x sum w|v|: {wgmma['excess']!r}")
     for shape, err in (((1, 200, 2, 2, 64), "multiples"),
                        ((1, 128, 2, 2, 48), "head dims")):
         q, k, v = qkv(shape, bf16, gen, device)
@@ -491,12 +579,12 @@ def phase_flash_kernels(device) -> dict:
         print(f"  flash {shape} refused with ValueError ({err}): {refused}")
         check(refused, f"flash accepted {shape}")
     release()
-    return {"max_abs_err": max_err}
+    return {"max_abs_err": max_err, "wgmma": wgmma}
 
 
 # ------------------------------------------------------------- phases 3-3c
 def drive(argv, callbacks=(), wrap=None, time_programs=True,
-          setup=None) -> dict:
+          setup=None, n_leaves_want=N_LEAVES) -> dict:
     """Build the engine through the training CLI's own setup, time each of
     its programs (host clock between synchronisations, unless
     ``time_programs`` is False), set the launch counts to 0, run, and read
@@ -515,7 +603,8 @@ def drive(argv, callbacks=(), wrap=None, time_programs=True,
     print(f"  model {cfg.name}: d_model={cfg.d_model} n_layers={cfg.n_layers}"
           f" vocab={cfg.vocab_size} params/replica={n_params} "
           f"leaves={n_leaves} R={args.replicas} method={args.method} "
-          f"backend={engine.backend.describe()}")
+          f"backend={engine.backend.describe()}; "
+          f"{torch.cuda.memory_reserved()} B reserved after the setup")
     times, calls = {}, {}
 
     def timed(name, fn):
@@ -553,7 +642,8 @@ def drive(argv, callbacks=(), wrap=None, time_programs=True,
         print(f"  {k}_ms median={medians[k]:.3f} all={v}")
     print(f"  max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB)")
     print(f"  launches={launches} n_syncs={hist.n_syncs}")
-    check(n_leaves == N_LEAVES, f"{n_leaves} leaves, expected {N_LEAVES}")
+    check(n_leaves == n_leaves_want,
+          f"{n_leaves} leaves, expected {n_leaves_want}")
     check(len(hist.losses) == args.steps, "not every step reported a loss")
     check(all(math.isfinite(x) for x in hist.losses), "non-finite loss")
     check(all(math.isfinite(x) for x in hist.s_k), "non-finite S_k")
@@ -561,20 +651,18 @@ def drive(argv, callbacks=(), wrap=None, time_programs=True,
           "non-finite final parameters")
     return {"engine": engine, "hist": hist, "launches": launches,
             "ms": medians, "calls": calls, "peak_bytes": peak,
-            "n_syncs": hist.n_syncs}
+            "n_syncs": hist.n_syncs, "n_params": n_params}
 
 
-def phase_main_path() -> dict:
-    """ADPSGD; each sync's S_k against the plain version on the same
-    pre-sync W."""
+def plain_sync_probe():
+    """A callback that keeps the plain S_k of the W each sync is about to
+    average (steps the controller has just scheduled a sync at)."""
     import torch
     from repro_torch.kernels.ref import mean_and_sqdev_ref
     from repro_torch.runtime.engine import Callback
     from repro_torch.tree import tree_leaves
 
     class PlainProbe(Callback):
-        """Plain S_k of the W the sync is about to average."""
-
         def __init__(self):
             self.plain = {}
 
@@ -585,19 +673,32 @@ def phase_main_path() -> dict:
                     self.plain[k] = float(
                         sum(mean_and_sqdev_ref(x)[1] for x in leaves)
                         / leaves[0].shape[0])
+    return PlainProbe()
 
-    probe = PlainProbe()
-    out = drive(MAIN_ARGV, callbacks=[probe])
-    hist, launches = out.pop("hist"), out["launches"]
+
+def check_against_plain(hist, probe, launches, n_leaves) -> list:
+    """At least 4 syncs, ``n_leaves`` mean_and_sqdev launches per sync and
+    no other kernel, each sync's S_k beside the plain one and the last
+    within rtol 1e-4.  Returns the relative errors."""
     print(f"  s_k_plain={[probe.plain.get(k) for k in hist.sync_steps]}")
     check(hist.n_syncs >= 4, f"only {hist.n_syncs} syncs")
-    check(launches == dict(mean_and_sqdev=N_LEAVES * hist.n_syncs, sqnorm=0,
+    check(launches == dict(mean_and_sqdev=n_leaves * hist.n_syncs, sqnorm=0,
                            quantize=0, dequantize=0, flash_attention=0),
-          f"launches {launches} != {N_LEAVES} x {hist.n_syncs} mean_sqdev")
+          f"launches {launches} != {n_leaves} x {hist.n_syncs} mean_sqdev")
     rels = [abs(s - probe.plain[k]) / abs(probe.plain[k])
             for k, s in zip(hist.sync_steps, hist.s_k)]
     print(f"  s_k rel err kernel vs plain per sync={rels}")
     check(rels[-1] <= 1e-4, f"last sync S_k rel err {rels[-1]} > 1e-4")
+    return rels
+
+
+def phase_main_path() -> dict:
+    """ADPSGD; each sync's S_k against the plain version on the same
+    pre-sync W."""
+    probe = plain_sync_probe()
+    out = drive(MAIN_ARGV, callbacks=[probe])
+    hist = out.pop("hist")
+    check_against_plain(hist, probe, out["launches"], N_LEAVES)
     engine = out.pop("engine")
     out["trajectory"] = (hist.sync_steps, hist.losses, hist.s_k)
     out["resume_ref"] = resume_ref(engine, hist)
@@ -1398,10 +1499,85 @@ def phase_dense_serving() -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 11
+def phase_deepseek_training() -> dict:
+    """ADPSGD on DeepSeek-V2-Lite at full width, 2 layers (layer 0's dense
+    MLP of width 10944 and one MoE layer: 64 routed experts top 6 and 2
+    shared, MLA), R = 4, adamw, batch 4 x 128, 16 steps, through the
+    training CLI's setup (``DEEPSEEK_ARGV``).  Each sync's S_k against the
+    plain version on the same pre-sync W, the last within rtol 1e-4;
+    exactly 27 mean_and_sqdev launches per sync (one per leaf: the expert
+    leaves (4, 64, 2048, 1408) and (4, 64, 1408, 2048), the router, MLA's
+    projections, the embedding and the head) and no other kernel.  Prints
+    the step and sync times, the peak bytes and the aux losses at the
+    first and last step, then times mean_and_sqdev over one sync of this
+    W (kernel, plain, ``torch.var_mean``) beside its bound."""
+    from repro_torch.launch.train import AuxLog
+
+    probe = plain_sync_probe()
+    out = drive(DEEPSEEK_ARGV, callbacks=[probe],
+                n_leaves_want=DEEPSEEK_LEAVES)
+    engine, hist = out.pop("engine"), out.pop("hist")
+    check(out["n_params"] == DEEPSEEK_PARAMS,
+          f"{out['n_params']} params per replica, not {DEEPSEEK_PARAMS}")
+    out["s_k_rel"] = check_against_plain(hist, probe, out["launches"],
+                                         DEEPSEEK_LEAVES)
+    aux = next(cb for cb in engine.callbacks if isinstance(cb, AuxLog))
+    steps = aux.history()
+    print(f"  aux losses at step 0: {steps[0]}; at step "
+          f"{len(steps) - 1}: {steps[-1]}")
+    check(len(steps) == len(hist.losses) and all(
+        math.isfinite(v) and v > 0 for a in steps for v in a.values()),
+        "aux losses missing or not positive")
+    out["aux"] = {"first": steps[0], "last": steps[-1]}
+    out["timing"] = phase_timing(engine.W)
+    del engine, hist
+    release()
+    return out
+
+
+# ----------------------------------------------------------------- phase 12
+def phase_moe_serving() -> dict:
+    """DeepSeek-V2-Lite at full width and depth (27 layers, no cut) and
+    Mixtral-8x22B at full width cut to 4 of its 56 layers (140.6 B
+    parameters, 562.5 GB in f32, do not fit one card), one after another
+    (memory released between), through ``serve_checks``: a 1 x 2048
+    prefill and generate 1 x (128 + 32).  Neither reaches flash attention,
+    in the reference as here (``flash_layers``): MLA attends through its
+    own path and Mixtral's 4096 window bypasses flash, so both prefills
+    expect 0 flash launches.  Checks the parameter counts and
+    ``active_param_count``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    out = {"launches": dict.fromkeys(KERNEL_NAMES, 0)}
+    for arch, (layers, n_params, n_active) in MOE_SERVE.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch).model,
+                                  max_seq_len=DENSE_SEQ)
+        if layers:
+            print(f"  {arch}: full width, cut to {layers} of "
+                  f"{cfg.n_layers} layers")
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        else:
+            print(f"  {arch}: full width and depth (no cut)")
+        res = serve_checks(cfg, DENSE_BATCH, DENSE_SEQ, DENSE_PROMPT,
+                           DENSE_GEN)
+        check(res["n_params"] == n_params and res["n_active"] == n_active,
+              f"{arch}: {res['n_params']} params, {res['n_active']} active;"
+              f" expected {n_params}, {n_active}")
+        res["wall_s"] = time.perf_counter() - t0
+        print(f"  {arch}: {res['wall_s']:.3f} s")
+        for k in KERNEL_NAMES:
+            out["launches"][k] += res["launches"][k]
+        out[arch] = res
+    return out
+
+
 # ------------------------------------------------------------------ phase 4
 def phase_timing(W) -> dict:
     """mean_and_sqdev: kernel, plain version and torch.var_mean (a
-    yardstick the port never calls) on the embedding leaf and on all
+    yardstick the port never calls) on the largest leaf and on all
     leaves of one sync."""
     import torch
     from repro_torch.kernels.param_variance import mean_and_sqdev
@@ -1634,16 +1810,26 @@ def phase_serving() -> dict:
                         SERVE_GEN)
 
 
+def flash_layers(cfg) -> int:
+    """The layers whose prefill reaches flash attention when use_flash is
+    set: GQA attention without a sliding window, the reference's rule
+    (``repro/models/layers.py:235``); MLA never does."""
+    return (cfg.n_layers if cfg.attention_type != "mla"
+            and cfg.sliding_window == 0 else 0)
+
+
 def serve_checks(cfg, B: int, S: int, P: int, G: int) -> dict:
     """One model at the depth ``cfg`` gives, parameters from
     init_params(0) on the card (timed), through the server's entry points.
 
     (a) make_prefill_step on B x S tokens three ways: use_flash (one
-        flash launch per layer, no other kernel), the plain route (0
-        launches) and the plain route in f32 compute, the yardstick.  The flash route's
-        max |d| of last-position logits from the yardstick must be at most
-        1.25x the plain bf16 route's (they differ only in how the
-        attention's f32 result is reached before its bf16 rounding).
+        flash launch per layer that reaches it, ``flash_layers``, and no
+        other kernel), the plain route (0 launches) and the plain route
+        in f32 compute, the yardstick.  The flash route's max |d| of
+        last-position logits from the yardstick must be at most 1.25x the
+        plain bf16 route's (they differ only in how the attention's f32
+        result is reached before its bf16 rounding; where no layer
+        reaches flash the two routes are the same computation).
     (b) generate, B x (P prompt + G generated) tokens, f32 caches,
         use_flash set: every token in the vocabulary, 0 flash launches
         (decode is S = 1 against the cache).
@@ -1651,7 +1837,12 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int) -> dict:
         bf16 prefill of the prompt: max |d| at most twice the bf16
         prefill's own distance from the f32 prefill (decode runs in f32
         after layer 0, since the caches are f32, so it lies about as far
-        from the bf16 prefill as the f32 prefill does)."""
+        from the bf16 prefill as the f32 prefill does).  A MoE config
+        makes this one comparison at capacity factor 8.0, as the
+        reference's own test does (``tests/test_models.py``): a prefill
+        routes a group of tokens and may drop some at capacity, decode
+        routes one token and never drops.  The timed prefills of (a) run
+        the config's own capacity factor."""
     import dataclasses
     import torch
     from repro_torch.launch import serve
@@ -1670,13 +1861,14 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int) -> dict:
     init_s = time.perf_counter() - t0
     reserved = torch.cuda.memory_reserved()
     n_params = M.param_count(params)
+    n_active = M.active_param_count(cfg, params)
     n_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
     print(f"  model {cfg.name}: d_model={cfg.d_model} n_layers={cfg.n_layers}"
           f" heads={cfg.n_heads}/{cfg.n_kv_heads} d_head={cfg.head_dim()} "
           f"vocab={cfg.vocab_size} tied={cfg.tie_embeddings} "
-          f"params={n_params} ({n_bytes} B, {n_bytes / 2**30:.2f} GiB "
-          f"{cfg.param_dtype}); init_params(0) on the card {init_s:.3f} s, "
-          f"{reserved} B reserved after it")
+          f"params={n_params} active={n_active} ({n_bytes} B, "
+          f"{n_bytes / 2**30:.2f} GiB {cfg.param_dtype}); init_params(0) on "
+          f"the card {init_s:.3f} s, {reserved} B reserved after it")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(5)
     tokens = torch.randint(0, cfg.vocab_size, (B, S),
@@ -1721,7 +1913,7 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int) -> dict:
     check(flash.shape == (B, cfg.vocab_size), "prefill shape")
     check(all(bool(torch.isfinite(t).all()) for t in (flash, plain, ref)),
           "non-finite prefill logits")
-    check(l_flash == dict(none, flash_attention=cfg.n_layers),
+    check(l_flash == dict(none, flash_attention=flash_layers(cfg)),
           f"flash prefill launches {l_flash}")
     check(l_plain == none, f"plain prefill launches {l_plain}")
     check(d_flash <= 1.25 * d_plain,
@@ -1753,20 +1945,24 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int) -> dict:
           "a generated token lies outside the vocabulary")
     check(l_gen == none, f"decode launches {l_gen}")
 
+    c_cfg = cfg if cfg.moe is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
     with torch.inference_mode():
-        caches = M.init_caches(cfg, B, P,
+        caches = M.init_caches(c_cfg, B, P,
                                dtype=torch.float32, device=DEVICE)
         for t in range(P):
             logits, caches = M.decode_step(
-                params, {"tokens": prompt[:, t:t + 1]}, caches, cfg)
+                params, {"tokens": prompt[:, t:t + 1]}, caches, c_cfg)
         dec = logits[:, 0].float()
         del caches
-    pre, _, _ = prefill(cfg, {"tokens": prompt}, reps=0)
-    pre32, _, _ = prefill(f32_cfg, {"tokens": prompt}, reps=0)
+    pre, _, _ = prefill(c_cfg, {"tokens": prompt}, reps=0)
+    pre32, _, _ = prefill(dataclasses.replace(c_cfg, compute_dtype="float32"),
+                          {"tokens": prompt}, reps=0)
     d_dec = float((dec - pre).abs().max())
     d_bf16 = float((pre - pre32).abs().max())
     same = int((dec.argmax(-1) == pre.argmax(-1)).sum())
-    print(f"  (c) decode vs plain prefill at the last prompt token: max |d|="
+    print(f"  (c) decode vs plain prefill at the last prompt token"
+          f"{'' if cfg.moe is None else ' (capacity factor 8.0)'}: max |d|="
           f"{d_dec!r} (limit 2 x {d_bf16!r}, the bf16 prefill's distance "
           f"from f32); decode vs f32 prefill {float((dec - pre32).abs().max())!r}"
           f"; greedy tokens agree {same} of {B}")
@@ -1780,7 +1976,8 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int) -> dict:
     release()
     return {"launches": {k: l_flash[k] + l_plain[k] + l_gen[k]
                          for k in KERNEL_NAMES},
-            "n_params": n_params, "init_s": init_s, "n_layers": cfg.n_layers,
+            "n_params": n_params, "n_active": n_active, "init_s": init_s,
+            "reserved_after_init": reserved, "n_layers": cfg.n_layers,
             "prefill_ms": {"flash": ms_flash, "plain": ms_plain,
                            "f32": ms_f32},
             "decode_ms_per_step": gen_s / steps * 1e3,
@@ -1892,10 +2089,19 @@ def main() -> int:
           f"and depth  card: {card}")
     dense = phase_dense_serving()
     done("10")
+    print(f"phase 11: ADPSGD, DeepSeek-V2-Lite full width, 2 layers (cut from "
+          f"27), R=4  card: {card}")
+    deepseek = phase_deepseek_training()
+    done("11")
+    print(f"phase 12: serving DeepSeek-V2-Lite at full width and depth, "
+          f"Mixtral-8x22B at full width, 4 of 56 layers  card: {card}")
+    moe_serving = phase_moe_serving()
+    done("12")
 
     training = {"adpsgd": main_path, "qsgd_periodic": qp, "qsgd": qs}
     paths = dict(training, serving=serving, clock=clock, **strategies,
-                 cnn=cnn, resume=resume, dense_serving=dense)
+                 cnn=cnn, resume=resume, dense_serving=dense,
+                 deepseek_training=deepseek, moe_serving=moe_serving)
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in KERNEL_NAMES}
     print("launches by path: " + json.dumps(
@@ -1947,7 +2153,14 @@ def main() -> int:
     print("summary: dense serving " + json.dumps(
         {arch: {k: v for k, v in dense[arch].items() if k != "launches"}
          for arch in DENSE_ARCHS}))
-    print("summary: flash timing " + json.dumps(ftiming))
+    print("summary: flash timing " + json.dumps(ftiming)
+          + " wgmma instance vs plain " + json.dumps(ferrs["wgmma"]))
+    print("summary: deepseek training " + json.dumps(
+        {k: deepseek[k] for k in ("ms", "peak_bytes", "n_syncs", "n_params",
+                                  "s_k_rel", "aux", "timing")}))
+    print("summary: moe serving " + json.dumps(
+        {arch: {k: v for k, v in moe_serving[arch].items() if k != "launches"}
+         for arch in MOE_SERVE}))
     print("summary: phase seconds " + json.dumps(phase_s)
           + f" total {sum(phase_s.values()):.1f}")
     print("summary: clock " + json.dumps(

@@ -136,14 +136,20 @@ class ModelConfig:
         return (layer_idx % m.moe_every) == (m.moe_every - 1) if m.moe_every > 1 else True
 
 
+PLANS = ("replica_dp", "fsdp", "replica_ddp")
+
+
 @dataclass(frozen=True)
 class ParallelismPlan:
     """How an architecture maps onto a mesh (the reference's fields:
     ``plan`` replica_dp | fsdp | replica_ddp, ``placement`` replica_ddp |
-    replica_tp, ``remat_policy`` full | dots | none).  Only a mesh backend
-    reads it, and the port's comes later: until then every field keeps
-    its default (the plan of every ported config), and another value is
-    refused rather than ignored."""
+    replica_tp, ``remat_policy`` full | dots | none).  In the reference
+    only the mesh launch tooling reads ``plan``, never the ``vmap``
+    backend, so the port carries any of the reference's plans as data and
+    its ``vmap`` backend ignores it just the same.  The other fields are
+    read by the mesh backend alone, which the port has not yet: until then
+    they keep their defaults, and another value is refused rather than
+    ignored."""
 
     plan: str = "replica_dp"
     placement: str = "replica_ddp"
@@ -152,12 +158,16 @@ class ParallelismPlan:
     vocab_parallel_embed: bool = True
 
     def __post_init__(self):
+        if self.plan not in PLANS:
+            raise NotImplementedError(
+                f"ParallelismPlan(plan={self.plan!r}): not a plan of the "
+                f"reference's mesh backend ({', '.join(PLANS)})")
         set_ = [f"{f.name}={getattr(self, f.name)!r}" for f in fields(self)
-                if getattr(self, f.name) != f.default]
+                if f.name != "plan" and getattr(self, f.name) != f.default]
         if set_:
             raise NotImplementedError(
                 f"ParallelismPlan({', '.join(set_)}): the port has no mesh "
-                f"backend yet, so only the default plan runs")
+                f"backend yet, so only the default placement runs")
 
 
 @dataclass(frozen=True)

@@ -40,10 +40,13 @@
 // The wgmma instance.  Bound: operations.  At the OLMo-1B prefill layer
 // (B 4, S 2048, H 16, d 128, causal) a call does 6.9e10 FLOPs against 134 MB
 // of bf16 traffic, 0.0695 ms at the bf16 tensor-core peak.
-//   Threads.  288 per block: two consumer warpgroups and one producer warp.
-//     A block owns one (b, h, 128-row q tile); consumer warpgroup w computes
-//     rows 64 w ... 64 w + 63 and loops over 128-key tiles.  The grid puts
-//     the q tile on its slow axis, longest rows first, for every head.
+//   Threads.  384 per block: two consumer warpgroups and one producer
+//     warpgroup, whose one issuing thread needs few registers: it gives
+//     them up (setmaxnreg.dec to 40) and the consumers take them
+//     (setmaxnreg.inc to 232), as FlashAttention-3 does.  A block owns one
+//     (b, h, 128-row q tile); consumer warpgroup w computes rows 64 w ...
+//     64 w + 63 and loops over 128-key tiles.  The grid puts the q tile on
+//     its slow axis, longest rows first, for every head.
 //   Loads.  One producer thread issues TMA loads (cp.async.bulk.tensor) from
 //     host-built tensor maps: Q once, then K and V tiles into a 2-stage ring,
 //     each stage with a "full" mbarrier (expect-tx bytes) and an "empty" one
@@ -58,10 +61,19 @@
 //     log2(e) / sqrt(d) and exponentiated with exp2f; row max over a quad by
 //     shuffles; the -1e30 mask and the -inf of keys past Sk applied only on
 //     tiles that cross the diagonal, the window's edge or Sk.
-//   O += P.V.  P is rounded to bf16 in registers (the one rounding the
-//     reference does not make; the normaliser sums the f32 p) and is the
-//     register A operand of wgmma m64n{d}k16; V is the shared-memory B
-//     operand, MN-major (the transpose bit).
+//   O += P.V.  The reference multiplies the f32 P by V.  wgmma takes bf16
+//     operands, so P goes in as two parts, hi = bf16(P) and lo = bf16(P -
+//     hi) (P - hi is exact in f32), each the register A operand of its own
+//     wgmma m64n{d}k16 into the same f32 accumulator: P enters at about 16
+//     mantissa bits instead of 8, and V, a bf16 input, is exact.  Both
+//     parts are packed before the first product is issued, so the f32
+//     scores die first: two packings of 32 registers hold no more than
+//     the 64 of S did.  Each k-step issues hi's product, then lo's, on the
+//     same V descriptor; all go in one commit group.  The second packing
+//     is what took the consumers past the 168 registers a thread that
+//     ptxas allows a 288- or 384-thread block (it spilled), hence the
+//     producer's registers above.  V is the shared-memory B
+//     operand, MN-major (the transpose bit); the normaliser sums the f32 p.
 //   Epilogue.  o / max(l, 1e-30) in bf16, rows past Sq not written.
 //
 // The SIMT instance.  One block of 128 threads owns one (b, h, 64-row q
@@ -408,7 +420,9 @@ int dispatch(const Args& a, int B, int d, cudaStream_t stream) {
 namespace tc {
 
 constexpr int kConsumers = 2;                        // consumer warpgroups
-constexpr int kThreads = kConsumers * 128 + 32;      // and one producer warp
+constexpr int kThreads = kConsumers * 128 + 128;     // and one producer warpgroup
+constexpr int kProducerRegs = 40;    // setmaxnreg: 128 x 40 + 256 x 232 <= 65536
+constexpr int kConsumerRegs = 232;
 constexpr int kBM = 128;       // q rows of a block, 64 per consumer warpgroup
 constexpr int kBN = 128;       // keys of a k tile
 constexpr int kStages = 2;     // depth of the K / V ring
@@ -513,6 +527,14 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// What pack_bf16(x0, x1) left out: bf16(x - bf16(x)) of each, given the
+// packed pair.  x - bf16(x) is exact in f32.
+__device__ __forceinline__ uint32_t pack_bf16_rest(float x0, float x1,
+                                                   uint32_t packed) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&packed);
+  return pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
 #define REPRO_ACC8(d, i)                                                    \
@@ -622,6 +644,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (threadIdx.x >= kConsumers * 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kProducerRegs));
     // Producer: one thread issues every TMA load.  Stage s of k tile t is
     // refilled once all consumer threads have released tile t - kStages.
     if (threadIdx.x == kConsumers * 128) {
@@ -645,6 +668,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(kConsumerRegs));
   // Consumers.  Warpgroup wg owns q rows wq0 ... wq0 + 63; in the m64nN
   // fragments a thread holds rows `row` and `row + 8` (register e of
   // column block i: row + 8 (e / 2), column 8 i + col + e % 2).
@@ -738,30 +762,40 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       }
     }
 
-    // P in bf16: the S fragment's consecutive pairs are the A fragment of
-    // the p·v product, 4 registers per 16 keys.
-    uint32_t p[kBN / 4];
+    // O += P·V as hi·V + lo·V.  Each part in bf16: the S fragment's
+    // consecutive pairs are the A fragment of the product, 4 registers per
+    // 16 keys; 16 keys per k-step, two 8-row groups of the V tile (1024 B
+    // apart); the second 64 columns lie one box further on.  Both parts are
+    // packed before the first product, so the f32 scores are dead while
+    // the products run: the two packings hold as many registers as S did.
+    // hi and lo of one k-step share its V descriptor, issued back to back,
+    // so no descriptor outlives its k-step.
+    uint32_t hi[kBN / 4], lo[kBN / 4];
 #pragma unroll
-    for (int j = 0; j < kBN / 4; ++j) p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
-
-    // O += P·V: 16 keys per k-step, two 8-row groups of the V tile (1024 B
-    // apart); the second 64 columns lie one box further on.
+    for (int j = 0; j < kBN / 4; ++j) {
+      hi[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+      lo[j] = pack_bf16_rest(sc[2 * j], sc[2 * j + 1], hi[j]);
+    }
     reg_fence(o);
-    reg_fence(p);
+    reg_fence(hi);
+    reg_fence(lo);
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kBN / 16; ++j) {
       const uint64_t dv = sw128_desc(v_addr + j * 16 * 128, kBoxBytes, 1024);
       if constexpr (D == 128) {
-        wgmma_rs_n128(o, p[4 * j], p[4 * j + 1], p[4 * j + 2], p[4 * j + 3], dv);
+        wgmma_rs_n128(o, hi[4 * j], hi[4 * j + 1], hi[4 * j + 2], hi[4 * j + 3], dv);
+        wgmma_rs_n128(o, lo[4 * j], lo[4 * j + 1], lo[4 * j + 2], lo[4 * j + 3], dv);
       } else {
-        wgmma_rs_n64(o, p[4 * j], p[4 * j + 1], p[4 * j + 2], p[4 * j + 3], dv);
+        wgmma_rs_n64(o, hi[4 * j], hi[4 * j + 1], hi[4 * j + 2], hi[4 * j + 3], dv);
+        wgmma_rs_n64(o, lo[4 * j], lo[4 * j + 1], lo[4 * j + 2], lo[4 * j + 3], dv);
       }
     }
     wgmma_commit();
     wgmma_wait();
     reg_fence(o);
-    reg_fence(p);
+    reg_fence(hi);
+    reg_fence(lo);
     mbar_arrive(empty0 + 8 * s);             // this thread is done with stage s
   }
 

@@ -6,12 +6,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced   # card
 
 Runs on the card; ``--device cpu`` runs on the CPU.  ``--no-reduced``
-keeps the published widths and ``--layers`` cuts depth.  Families whose
-decode state is not ported yet (encoder, MLA, SSM, xLSTM) raise
+keeps the published widths and ``--layers`` cuts depth.  The dense and
+MoE configs serve (MLA decodes against its latent cache); families whose
+decode state is not ported yet (encoder, SSM, xLSTM) raise
 ``NotImplementedError``.  The flash-attention kernel belongs to the
 full-sequence forward (``launch/steps.py::make_prefill_step`` with
-``use_flash`` set on the config); decoding feeds one token at a time and
-never reaches it.
+``use_flash`` set on the config) of GQA attention without a sliding
+window, as in the reference: MLA and Mixtral's window bypass it, and
+decoding feeds one token at a time and never reaches it.
 """
 from __future__ import annotations
 

@@ -14,6 +14,9 @@ every N steps (``--no-keep-replicas``: replica-averaged export
 checkpoints).  A run resumes through ``TrainerEngine.load_state``, as in
 the reference.  The mesh placements come with the mesh backend.
 ``--no-reduced`` keeps the published widths and ``--layers`` cuts depth.
+A mixture-of-experts config (``--arch mixtral-8x22b``,
+``deepseek-v2-lite-16b``) adds its aux losses to the loss; the run prints
+them at its first and last step.
 """
 from __future__ import annotations
 
@@ -35,8 +38,8 @@ from repro_torch.launch.steps import make_loss_fn
 from repro_torch.models import model as M
 from repro_torch.optim import get_optimizer, make_lr_schedule
 from repro_torch.runtime.clock import make_clock
-from repro_torch.runtime.engine import (Checkpointer, PeriodicEval,
-                                        TrainerEngine)
+from repro_torch.runtime.engine import (Callback, Checkpointer,
+                                        PeriodicEval, TrainerEngine)
 from repro_torch.strategies import available_strategies, make_strategy
 from repro_torch.tree import tree_leaves
 
@@ -109,6 +112,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
+class AuxLog(Callback):
+    """Each step's replica-mean MoE aux losses (``moe_load_balance``,
+    ``moe_z_loss``), kept on the device until the run ends, so that no
+    step waits for them."""
+
+    def __init__(self):
+        self._aux = []
+
+    def on_step_end(self, engine, k, metrics):
+        self._aux.append({n: v for n, v in metrics.items()
+                          if n.startswith("moe_")})
+
+    def history(self):
+        return [{n: float(v) for n, v in a.items()} for a in self._aux]
+
+
 def build_engine(args: argparse.Namespace, callbacks=()):
     """The engine this CLI runs, and the model config it trains."""
     run = get_config(args.arch)
@@ -141,6 +160,8 @@ def build_engine(args: argparse.Namespace, callbacks=()):
     params0 = M.init_params(args.seed, cfg, device=backend.device)
     loss_fn = make_loss_fn(cfg)
     callbacks = list(callbacks)
+    if cfg.moe is not None:
+        callbacks.append(AuxLog())
     if args.eval_every:
         callbacks.append(PeriodicEval(
             loss_fn, lambda: data.eval_batches(batch=args.batch * 4,
@@ -175,6 +196,12 @@ def main(argv: Optional[Sequence[str]] = None):
           f"final_p={hist.period_history[-1] if hist.period_history else 1}")
     if hist.inner_sync_steps:
         print(f"  inner_syncs={len(hist.inner_sync_steps)}")
+    aux = next((cb.history() for cb in engine.callbacks
+                if isinstance(cb, AuxLog)), [])
+    if aux:
+        first, last = aux[0], aux[-1]
+        print("  aux " + " ".join(
+            f"{n} {first[n]:.5f} -> {last[n]:.5f}" for n in sorted(first)))
     leaves = tree_leaves(hist.final_W)
     op = engine.strategy.sync_op()
     per_event = op.wire_bytes(sum(x.numel() for x in leaves) // args.replicas,

@@ -1,4 +1,4 @@
-"""Core neural-net layers (port of the dense subset of
+"""Core neural-net layers (port of the decoder-only subset of
 ``repro/models/layers.py``).
 
 Functional, as the reference: ``init_*`` builds a parameter tree (nested
@@ -7,9 +7,11 @@ reference's ``jax.random`` key, and ``*_forward`` consumes it.  The weight layou
 reference's — dense ``w`` is ``(d_in, d_out)`` and the product is
 ``x @ w`` — so reference parameters copy across with no transposes.
 Attention is GQA, over the full sequence (the flash-attention kernel when
-``cfg.use_flash`` asks for it) or one token against a KV cache; the MLP is
-SwiGLU.  MLA, M-RoPE, cross attention, MoE and the gelu MLP come with later
-parts of the port.
+``cfg.use_flash`` asks for it) or one token against a KV cache, or
+DeepSeek-V2's multi-head latent attention (MLA) against a latent cache;
+the feed-forward is the SwiGLU MLP or the grouped-dispatch mixture of
+experts.  M-RoPE, cross attention and the gelu MLP come with later parts
+of the port.
 """
 from __future__ import annotations
 
@@ -118,12 +120,33 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
 
 def init_attention(key: prng.Key, cfg: ModelConfig, *,
                    device: DeviceLike = None) -> Params:
-    """GQA; the key splits 6 ways as the reference's (whose MLA branch
-    uses the last two)."""
+    """GQA or MLA; the key splits 6 ways as the reference's.  MLA draws
+    from ``ks[0..4]``, and with ``q_lora_rank`` set draws ``wq`` again from
+    ``ks[0]`` at the low-rank width, as there."""
     dt = dtype_of(cfg.param_dtype)
     D, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     ks = prng.split(key, 6)
     kw = dict(dtype=dt, device=device)
+    if cfg.attention_type == "mla":
+        m = cfg.mla
+        qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+        dev = resolve_device(device)
+        p = {
+            "wq": dense_init(ks[0], D, H * qk_dim, **kw),
+            "wkv_a": dense_init(ks[1], D, m.kv_lora_rank + m.qk_rope_head_dim,
+                                **kw),
+            "kv_norm": {"scale": torch.ones(m.kv_lora_rank, dtype=dt,
+                                            device=dev)},
+            "wkv_b": dense_init(ks[2], m.kv_lora_rank,
+                                H * (m.qk_nope_head_dim + m.v_head_dim), **kw),
+            "wo": dense_init(ks[3], H * m.v_head_dim, D, **kw),
+        }
+        if m.q_lora_rank:
+            p["wq_a"] = dense_init(ks[4], D, m.q_lora_rank, **kw)
+            p["q_norm"] = {"scale": torch.ones(m.q_lora_rank, dtype=dt,
+                                               device=dev)}
+            p["wq"] = dense_init(ks[0], m.q_lora_rank, H * qk_dim, **kw)
+        return p
     b = cfg.attn_qkv_bias
     return {
         "wq": dense_init(ks[0], D, H * dh, bias=b, **kw),
@@ -136,8 +159,20 @@ def init_attention(key: prng.Key, cfg: ModelConfig, *,
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, *, device: DeviceLike = None) -> Params:
     """Fixed-size ring buffer.  For SWA the buffer is only ``window`` long.
-    Slots not written yet hold position −1, which the mask refuses."""
+    Slots not written yet hold position −1, which the mask refuses.  MLA
+    caches the normalised latent (``kv_lora_rank``) and the shared rope
+    key of each position, ``max_len`` of them (no ring)."""
     device = resolve_device(device)
+    if cfg.attention_type == "mla":
+        m = cfg.mla
+        return {
+            "ckv": torch.zeros(batch, max_len, m.kv_lora_rank, dtype=dtype,
+                               device=device),
+            "kpe": torch.zeros(batch, max_len, m.qk_rope_head_dim,
+                               dtype=dtype, device=device),
+            "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                              device=device),
+        }
     buf = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     K, dh = cfg.n_kv_heads, cfg.head_dim()
     return {
@@ -188,7 +223,13 @@ def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
       tensor) picks the write slot.  The cache's buffers are updated in
       place (the reference returns new buffers; the port saves their
       copies) and the cache is returned.
+
+    MLA configs go to ``_mla_forward``, which never reaches flash, as in
+    the reference.
     """
+    if cfg.attention_type == "mla":
+        return _mla_forward(p, x, cfg, positions=positions, cache=cache,
+                            cache_index=cache_index)
     B, S, _ = x.shape
     H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     q = dense(p["wq"], x).reshape(B, S, H, dh)
@@ -223,17 +264,68 @@ def _scatter_rows(buf: torch.Tensor, x: torch.Tensor,
     buf.index_copy_(1, slot.reshape(1).long(), x.to(buf.dtype))
 
 
+def _mla_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                 positions: torch.Tensor, cache: Optional[Params] = None,
+                 cache_index: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """DeepSeek-V2 multi-head latent attention.  The cache holds only the
+    normalised latent and the shared rope key; decode writes them at
+    ``cache_index`` itself (no ring), in place, and expands every cached
+    position through ``wkv_b`` again, as the reference does."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, nope = cfg.n_heads, m.qk_nope_head_dim
+    qk_dim = nope + m.qk_rope_head_dim
+    if m.q_lora_rank:
+        cq = _rms(dense(p["wq_a"], x), p["q_norm"]["scale"], cfg.norm_eps)
+        q = dense(p["wq"], cq).reshape(B, S, H, qk_dim)
+    else:
+        q = dense(p["wq"], x).reshape(B, S, H, qk_dim)
+    qn, qr = q[..., :nope], q[..., nope:]
+    qr = apply_rope(qr, positions, cfg.rope_theta)
+
+    kv_a = dense(p["wkv_a"], x)
+    ckv, kpe = kv_a[..., :m.kv_lora_rank], kv_a[..., m.kv_lora_rank:]
+    ckv = _rms(ckv, p["kv_norm"]["scale"], cfg.norm_eps)
+    kpe = apply_rope(kpe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+
+    if cache is not None:
+        for name, rows in (("ckv", ckv), ("kpe", kpe), ("pos", positions)):
+            _scatter_rows(cache[name], rows, cache_index)
+        ckv, kpe, k_pos = cache["ckv"], cache["kpe"], cache["pos"]
+    else:
+        k_pos = positions
+
+    kv = dense(p["wkv_b"], ckv.to(x.dtype))
+    Sk = kv.shape[1]
+    kv = kv.reshape(B, Sk, H, nope + m.v_head_dim)
+    kn, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([kn, kpe[:, :, None, :].to(x.dtype).expand(
+        B, Sk, H, m.qk_rope_head_dim)], dim=-1)
+    q_full = torch.cat([qn, qr], dim=-1)
+    mask = _causal_mask(positions, k_pos, 0)
+    out = _sdpa(q_full, k, v, mask, cfg.attn_logit_softcap)
+    return dense(p["wo"], out.reshape(B, S, H * m.v_head_dim)), cache
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(key: prng.Key, cfg: ModelConfig, *,
-             device: DeviceLike = None) -> Params:
-    """SwiGLU (every dense config but whisper's gelu, which comes with the
-    audio family)."""
+def init_mlp(key: prng.Key, cfg: ModelConfig, d_ff: Optional[int] = None,
+             *, device: DeviceLike = None) -> Params:
+    """SwiGLU (every ported config; whisper's gelu comes with the audio
+    family) of width ``d_ff or cfg.d_ff``: the shared experts and the
+    dense layers below ``first_k_dense`` pass their own."""
     dt = dtype_of(cfg.param_dtype)
-    D, Fd = cfg.d_model, cfg.d_ff
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
     ks = prng.split(key, 3)
     kw = dict(dtype=dt, device=device)
     return {
@@ -247,3 +339,110 @@ def mlp_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """SwiGLU."""
     return dense(p["w_down"], F.silu(dense(p["w_gate"], x))
                  * dense(p["w_up"], x))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (GShard-style grouped capacity dispatch)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(key: prng.Key, cfg: ModelConfig, *,
+             device: DeviceLike = None) -> Params:
+    """The reference's draws: the key splits 5 ways; the router (D, E) in
+    f32 from ``ks[0]``; the experts' (E, D, F) gate and up and (E, F, D)
+    down from ``ks[1..3]``; the shared experts, one SwiGLU of width
+    ``F · n_shared_experts``, from ``ks[4]``."""
+    m = cfg.moe
+    dt, dev = dtype_of(cfg.param_dtype), resolve_device(device)
+    D, Fe, E = cfg.d_model, m.d_ff_expert, m.n_experts
+    ks = prng.split(key, 5)
+    s = 1.0 / math.sqrt(D)
+    p = {
+        "router": prng.normal(ks[0], (D, E), device=dev).mul_(s),
+        "w_gate": prng.normal(ks[1], (E, D, Fe), device=dev).mul_(s).to(dt),
+        "w_up": prng.normal(ks[2], (E, D, Fe), device=dev).mul_(s).to(dt),
+        "w_down": prng.normal(ks[3], (E, Fe, D), device=dev).div_(
+            math.sqrt(Fe)).to(dt),
+    }
+    if m.n_shared_experts:
+        p["shared"] = init_mlp(ks[4], cfg, d_ff=Fe * m.n_shared_experts,
+                               device=dev)
+    return p
+
+
+def moe_route(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              group_size: int = 256) -> Dict[str, Any]:
+    """The router of ``moe_forward``: x (B,S,D) viewed as G groups of Sg
+    tokens (Sg = min(group_size, T) halved until it divides T), each
+    expert's capacity C = min(max(4, int(Sg·k/E·cf)), Sg), as the
+    reference's; softmax over the experts in f32; the top k by a stable
+    descending sort, so that ties go to the lower expert index as
+    ``jax.lax.top_k`` breaks them; the k probabilities renormalised.  Each
+    (token, slot) takes its place in its expert's queue from a cumulative
+    count over the flattened (Sg·k) order, token-major and slot-minor, and
+    is dropped at place C or later."""
+    m = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    Sg = min(group_size, T)
+    while T % Sg:
+        Sg //= 2
+    G = T // Sg
+    C = min(max(4, int(Sg * m.top_k / m.n_experts * m.capacity_factor)), Sg)
+    logits = x.reshape(G, Sg, D).to(torch.float32) @ p["router"]  # (G,Sg,E)
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[..., :m.top_k], idx[..., :m.top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    onehot = F.one_hot(gate_idx, m.n_experts)                     # (G,Sg,k,E)
+    flat = onehot.reshape(G, Sg * m.top_k, m.n_experts)
+    place = (torch.cumsum(flat, dim=1) * flat).sum(-1) - 1        # (G,Sg·k)
+    place = place.reshape(G, Sg, m.top_k)
+    return {"G": G, "Sg": Sg, "C": C, "logits": logits, "probs": probs,
+            "gate_vals": gate_vals, "gate_idx": gate_idx, "onehot": onehot,
+            "place": place, "keep": place < C}
+
+
+def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                group_size: int = 256
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B,S,D) -> (out, aux losses), the reference's grouped capacity
+    dispatch (``moe_route``).  Its one-hot (G,Sg,E,C) dispatch and combine
+    contractions become an index copy into the (E, G·C, D) expert buffer
+    and a gather from it: each one-hot row holds one term, so no value
+    changes.  The expert buffer and its three batched products stay, as
+    the reference's arithmetic (plain matmuls: the reference leaves them
+    to XLA).  The combine weights are rounded to x's dtype before they
+    multiply the expert outputs, as there; a dropped slot weighs 0.  aux:
+    the Switch load balance (from the counts before drops) and the router
+    z-loss, each times its coefficient."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, k = m.n_experts, m.top_k
+    r = moe_route(p, x, cfg, group_size)
+    G, Sg, C, keep = r["G"], r["Sg"], r["C"], r["keep"]
+    # a slot's row in the (E·G·C) buffer; dropped slots go to one spare row
+    g_ix = torch.arange(G, device=x.device).reshape(G, 1, 1)
+    row = (r["gate_idx"] * G + g_ix) * C + r["place"]
+    row = torch.where(keep, row, E * G * C).reshape(-1)
+    src = x.reshape(G, Sg, 1, D).expand(G, Sg, k, D).reshape(-1, D)
+    ex_in = torch.index_copy(x.new_zeros(E * G * C + 1, D), 0, row, src)
+    ex_in = ex_in[:-1].reshape(E, G * C, D)
+    h = (F.silu(torch.bmm(ex_in, p["w_gate"].to(x.dtype)))
+         * torch.bmm(ex_in, p["w_up"].to(x.dtype)))
+    ex_out = torch.bmm(h, p["w_down"].to(x.dtype)).reshape(E * G * C, D)
+    picked = ex_out[torch.clamp(row, max=E * G * C - 1)]           # (T·k, D)
+    w = (r["gate_vals"].to(x.dtype) * keep.to(x.dtype)).reshape(-1, 1)
+    out = (w.to(torch.float32) * picked.to(torch.float32)).reshape(
+        G, Sg, k, D).sum(2).to(x.dtype).reshape(B, S, D)
+
+    frac_tokens = r["onehot"].sum(2).to(torch.float32).mean(dim=(0, 1))
+    frac_probs = r["probs"].mean(dim=(0, 1))
+    lb = E * (frac_tokens * frac_probs).sum()
+    z = torch.logsumexp(r["logits"], dim=-1).square().mean()
+    aux = {"moe_load_balance": m.router_aux_coef * lb,
+           "moe_z_loss": m.router_z_coef * z}
+    if "shared" in p:
+        out = out + mlp_forward(p["shared"], x, cfg)
+    return out, aux

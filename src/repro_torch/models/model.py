@@ -1,6 +1,6 @@
 """Model API: init, full-sequence forward (train / prefill), single-token
 decode against caches, and the LM loss (port of ``repro/models/model.py``
-for dense decoder-only LMs).
+for decoder-only LMs: dense, MoE and MLA).
 
 A batch is a dict with ``tokens`` (B,S) int and optionally ``positions``
 (B,S) and ``loss_mask`` (B,S-1); for decode steps it carries a single
@@ -26,7 +26,6 @@ Params = Dict[str, Any]
 
 def _check_ported(cfg: ModelConfig) -> None:
     missing = [name for name, on in (
-        ("moe", cfg.moe is not None), ("mla", cfg.attention_type == "mla"),
         ("encoder", cfg.encoder is not None),
         ("vision", cfg.vision is not None),
         ("layer_pattern", cfg.layer_pattern is not None),
@@ -81,9 +80,26 @@ def param_count(params: Params) -> int:
     return sum(x.numel() for x in tree_leaves(params))
 
 
+def active_param_count(cfg: ModelConfig, params: Params) -> int:
+    """MoE-aware, as the reference's: of each MoE layer's experts only
+    top_k count per token (the router and shared experts always do)."""
+    total = param_count(params)
+    m = cfg.moe
+    if m is None:
+        return total
+    inactive = 0
+    for blk in params["blocks"]:
+        if "moe" in blk:
+            per_expert = sum(blk["moe"][k].numel() // m.n_experts
+                             for k in ("w_gate", "w_up", "w_down"))
+            inactive += per_expert * (m.n_experts - m.top_k)
+    return total - inactive
+
+
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence forward.  Returns (logits (B,S,V), aux losses)."""
+    """Full-sequence forward.  Returns (logits (B,S,V), aux losses: each
+    MoE layer's summed over the layers, in layer order)."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -93,10 +109,13 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     if pos is None:
         pos = torch.arange(S, dtype=torch.int32,
                            device=tokens.device).expand(B, S)
+    aux_total: Dict[str, torch.Tensor] = {}
     for i, blk in enumerate(params["blocks"]):
-        x, _ = T.block_forward(blk, x, cfg, i, positions=pos)
+        x, aux, _ = T.block_forward(blk, x, cfg, i, positions=pos)
+        for k, v in aux.items():
+            aux_total[k] = aux_total.get(k, 0.0) + v
     x = L.norm_forward(params["final_norm"], x, cfg)
-    return _lm_head(params, x, cfg), {}
+    return _lm_head(params, x, cfg), aux_total
 
 
 def _lm_head(params, x, cfg):
@@ -112,7 +131,8 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor],
                 caches: Params, cfg: ModelConfig,
                 ) -> Tuple[torch.Tensor, Params]:
     """One-token decode.  batch["tokens"]: (B,1).  Returns (logits (B,1,V),
-    updated caches); the layers' buffers are updated in place."""
+    updated caches); the layers' buffers are updated in place.  MoE aux
+    losses are dropped, as in the reference."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -126,8 +146,8 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor],
         pos = idx.to(torch.int32).reshape(1, 1).expand(B, 1)
     new_layers = []
     for i, blk in enumerate(params["blocks"]):
-        x, nc = T.block_forward(blk, x, cfg, i, positions=pos,
-                                cache=caches["layers"][i], cache_index=idx)
+        x, _, nc = T.block_forward(blk, x, cfg, i, positions=pos,
+                                   cache=caches["layers"][i], cache_index=idx)
         new_layers.append(nc)
     x = L.norm_forward(params["final_norm"], x, cfg)
     return _lm_head(params, x, cfg), {"layers": new_layers, "index": idx + 1}
@@ -135,8 +155,9 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor],
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy.  ``logsumexp − gather`` takes the place of
-    the reference's one-hot contraction (same value, no (B,S,V) one-hot)."""
+    """Next-token cross-entropy plus the MoE aux losses.  ``logsumexp −
+    gather`` takes the place of the reference's one-hot contraction (same
+    value, no (B,S,V) one-hot)."""
     logits, aux = forward(params, batch, cfg)
     tokens = batch["tokens"]
     S = tokens.shape[1]

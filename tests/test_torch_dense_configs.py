@@ -72,12 +72,15 @@ def test_run_config_matches_reference(arch):
 
 
 @pytest.mark.parametrize("change", [
-    {"plan": "fsdp"}, {"placement": "replica_tp"},
+    {"plan": "model_parallel"}, {"placement": "replica_tp"},
     {"shard_activations": False}, {"remat_policy": "dots"},
     {"vocab_parallel_embed": False}])
 def test_parallelism_plan_refuses_what_no_backend_reads(change):
-    """The port has no mesh backend: a plan field set away from its
-    default would be ignored, so it is refused."""
+    """The port has no mesh backend: a field only that backend reads, set
+    away from its default, would be ignored, so it is refused; so is a
+    plan that is none of the reference's (``replica_dp``, ``fsdp`` and
+    ``replica_ddp`` are data the vmap backend ignores, as the
+    reference's does: ``test_torch_moe_configs.py``)."""
     with pytest.raises(NotImplementedError, match="mesh backend"):
         ParallelismPlan(**change)
     assert ParallelismPlan() == ParallelismPlan(plan="replica_dp")
@@ -85,7 +88,8 @@ def test_parallelism_plan_refuses_what_no_backend_reads(change):
 
 def test_available_configs_lists_the_ported_configs():
     got = available_configs()
-    assert set(ARCHS + ["olmo-1b"]) == set(got)
+    assert set(ARCHS + ["olmo-1b", "mixtral-8x22b",
+                        "deepseek-v2-lite-16b"]) == set(got)
     assert set(got) <= set(jax_available_configs())
 
 
