@@ -39,15 +39,21 @@ layer) at full width, cut to 2 layers, with ADPSGD at R = 4 (the fused
 mean + sqdev kernel in every sync, at the expert leaves' shapes); phase 12
 serves DeepSeek-V2-Lite at full width and depth and Mixtral-8x22B at full
 width, cut to 4 of 56 layers (neither reaches flash attention, in the
-reference as here).  Each path is driven with the launch counts set to 0
-just before it and read just after.
+reference as here).  Phase 13 trains Qwen2-VL-2B (momentum) and
+Whisper-medium (adamw, 1500 seeded frames a sample) at full width and
+depth with ADPSGD at R = 4, and serves both whole (Qwen2-VL's prefill
+with a 64-patch vision prefix, Whisper's over 1500 frames, both through
+flash; Whisper's encoder and cross attention bypass it, as in the
+reference).  Each path is driven with the launch counts set to 0 just
+before it and read just after.
 
 Phases: 1 environment and build (no kernel may spill registers; TF32
 off, deterministic cuDNN); 2 kernels against their plain versions; 3,
 3b, 3c the training paths; 4 kernel timings; 5 serving; 6 the clock; 7
 the last three strategies; 8 the CNN experiment; 9 checkpoint / resume;
 10 the dense configs served; 11 the MoE family trained; 12 the MoE family
-served.  Each phase prints its seconds.  Any failed check exits
+served; 13a-c the vision-language and audio models trained and served.
+Each phase prints its seconds.  Any failed check exits
 non-zero.
 The card's ``nvidia-smi`` name and power limit stand on the line before
 the ``{"kernels": [...]}`` line, and the last line is
@@ -111,10 +117,19 @@ DEEPSEEK_LEAF_SHAPES = [(64, 2048, 1408), (64, 1408, 2048), (2048, 64),
                         (2048, 2816), (2816, 2048), (2048, 10944),
                         (10944, 2048), (2048,), (102400, 2048),
                         (2048, 102400)]
+# each distinct leaf shape of phase 13's Qwen2-VL-2B and Whisper-medium
+# (R = 4) that the paths above have not: the embeddings, the attention
+# projections (Qwen2-VL's two KV heads: 256 wide), the MLPs, the QKV and
+# GELU biases, the norms
+VLM_AUDIO_LEAF_SHAPES = [(151936, 1536), (1536, 1536), (1536, 256),
+                         (1536, 8960), (8960, 1536), (256,), (1536,),
+                         (51865, 1024), (1024, 1024), (1024, 4096),
+                         (4096, 1024), (4096,), (1024,)]
 KERNEL_CASES = ([(2, (100,)), (8, (33, 7)), (16, (1024,)), (4, (5, 4, 3))]
                 + [(4, s) for s in LEAF_SHAPES]
                 + [(CNN_R, s) for s in CNN_LEAF_SHAPES]
-                + [(4, s) for s in DEEPSEEK_LEAF_SHAPES])
+                + [(4, s) for s in DEEPSEEK_LEAF_SHAPES]
+                + [(4, s) for s in VLM_AUDIO_LEAF_SHAPES])
 # (shape, bits): the reference's QSGD kernel-test cases, then the leaves
 QSGD_CASES = ([((n,), b) for n in (7, 1000, 1024, 4097) for b in (4, 8)]
               + [((33, 17), 8)]
@@ -154,6 +169,28 @@ DEEPSEEK_PARAMS = 1_085_287_424     # per replica, 2 layers
 # width cut to 4 of 56 layers; 1 x 2048 prefill, generate 1 x (128 + 32)
 MOE_SERVE = {"deepseek-v2-lite-16b": (0, 15_706_484_224, 2_661_150_208),
              "mixtral-8x22b": (4, 10_418_903_040, 3_171_145_728)}
+# phase 13: Qwen2-VL-2B and Whisper-medium at full width and depth, R = 4,
+# each config's optimizer (momentum / adamw), DEEPSEEK_ARGV's other flags;
+# Whisper at batch 2 x 512 tokens with 1500 seeded frames a sample
+QWEN_VL_ARGV = ["--arch", "qwen2-vl-2b", "--backend", "vmap",
+                "--no-reduced", "--replicas", "4", "--batch", "4",
+                "--seq", "128", "--warmup-sync", "2", "--p-init", "2",
+                "--lr", "4e-4", "--seed", "0", "--method", "adpsgd",
+                "--steps", "16"]
+WHISPER_ARGV = ["--arch", "whisper-medium", "--backend", "vmap",
+                "--no-reduced", "--replicas", "4", "--batch", "2",
+                "--seq", "512", "--warmup-sync", "2", "--p-init", "2",
+                "--lr", "4e-4", "--seed", "0", "--method", "adpsgd",
+                "--steps", "16"]
+# (leaves, params) per replica, the reference's jax.eval_shape
+VLM_AUDIO_TRAIN = {"qwen2-vl-2b": (338, 1_543_714_304),
+                   "whisper-medium": (725, 758_248_448)}
+# serving, each one's prefill layer (B, S, H, K, d): Qwen2-VL 1 x (64
+# patches + 1984 tokens), generate 1 x (128 + 32) text only; Whisper's
+# decoder 4 x 512 over 1500 frames, generate 4 x (128 + 32)
+VLM_AUDIO_ARCHS = {"qwen2-vl-2b": (1, 2048, 12, 2, 128),
+                   "whisper-medium": (4, 512, 16, 16, 64)}
+VLM_AUDIO_PROMPT, VLM_AUDIO_GEN = 128, 32
 
 
 class CheckFailed(Exception):
@@ -488,7 +525,8 @@ def phase_flash_kernels(device, ulp_check: bool = True) -> dict:
     shapes x f32/bf16 x window 0/64, causal, and the block-size case) at
     its tolerances, atol = rtol = 2e-5 in f32 and 2e-2 in bf16 (online
     against exact softmax; one bf16 rounding of the output); the prefill
-    layers of phase 10's three dense configs, the OLMo-1B prefill layer,
+    layers of phase 10's three dense configs and of phase 13's Qwen2-VL
+    and Whisper decoder, the OLMo-1B prefill layer,
     GLM4-9B's GQA heads and causal=False in bf16.  Every call is run twice
     for a bitwise repeat, adds 1 to the launch count each time, and a
     length the reference refuses raises.  On the wgmma instance (bf16, d
@@ -508,7 +546,8 @@ def phase_flash_kernels(device, ulp_check: bool = True) -> dict:
     cases += [((1, 256, 4, 2, 64), f32, True, 0,
                {"block_q": bq, "block_k": bk})
               for bq, bk in ((64, 64), (128, 64), (64, 128))]
-    cases += [(shape, bf16, True, 0, {}) for shape in DENSE_ARCHS.values()]
+    cases += [(shape, bf16, True, 0, {}) for shape in
+              list(DENSE_ARCHS.values()) + list(VLM_AUDIO_ARCHS.values())]
     cases += [(OLMO_PREFILL, bf16, True, 0, {}), (GLM4_GQA, bf16, True, 0, {}),
               ((2, 256, 4, 2, 32), f32, False, 0, {}),
               ((2, 256, 4, 2, 32), bf16, False, 0, {}),
@@ -1574,6 +1613,129 @@ def phase_moe_serving() -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 13
+def add_frames(engine) -> None:
+    """Whisper's loss reads ``frames``, which the training CLI's data does
+    not carry (nor the reference's): every batch of ``engine`` gains
+    frames (R, b, 1500, d_model), 0.1·N(0, 1) drawn on the card from a
+    generator seeded with the step, as the reference's tests build them."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-medium").model
+    tokens_fn = engine.data_fn
+    gen = torch.Generator(device=DEVICE)
+
+    def data_fn(step):
+        batch = dict(tokens_fn(step))
+        R, b = batch["tokens"].shape[:2]
+        gen.manual_seed(step)
+        batch["frames"] = 0.1 * torch.randn(
+            (R, b, cfg.encoder.n_frames, cfg.d_model), generator=gen,
+            device=DEVICE)
+        return batch
+    engine.data_fn = data_fn
+
+
+def vlm_audio_training(arch: str, argv, setup=None) -> dict:
+    """ADPSGD at full width and depth, R = 4, through the training CLI's
+    setup (``argv``; ``setup`` may change the engine before the run).
+    Each sync's S_k against the plain version on the same pre-sync W, the
+    last within rtol 1e-4; exactly one mean_and_sqdev launch per leaf per
+    sync and no other kernel; the parameter count.  Then mean_and_sqdev
+    over one sync of this W (kernel, plain, ``torch.var_mean``) beside
+    its bound."""
+    n_leaves, n_params = VLM_AUDIO_TRAIN[arch]
+    probe = plain_sync_probe()
+    out = drive(argv, callbacks=[probe], setup=setup, n_leaves_want=n_leaves)
+    engine, hist = out.pop("engine"), out.pop("hist")
+    check(out["n_params"] == n_params,
+          f"{out['n_params']} params per replica, not {n_params}")
+    out["s_k_rel"] = check_against_plain(hist, probe, out["launches"],
+                                         n_leaves)
+    out["timing"] = phase_timing(engine.W)
+    del engine, hist
+    release()
+    return out
+
+
+def vision_inputs(cfg, B: int):
+    """Qwen2-VL's prefill inputs: a seeded vision prefix of n_patches
+    embeddings, 0.02·N(0, 1), on a square grid, with M-RoPE positions (t
+    = 0, h = row, w = column; the text after it t = h = w, counting on
+    from the largest patch position).  Decode is text only, as the
+    reference's."""
+    import torch
+
+    def inputs(params, gen):
+        P, D = cfg.vision.n_patches, cfg.d_model
+        side = math.isqrt(P)
+        i = torch.arange(P, device=DEVICE)
+        vis = torch.stack([torch.zeros_like(i), i // side, i % side])
+        S = cfg.max_seq_len - P
+        txt = (vis.max() + 1 + torch.arange(S, device=DEVICE)).expand(3, S)
+        pos = torch.cat([vis, txt], dim=1).to(torch.int32)
+        return {"prefill": {
+                    "vision_embeds": 0.02 * torch.randn(
+                        (B, P, D), generator=gen, device=DEVICE),
+                    "mrope_pos": pos[:, None].expand(3, B, P + S)},
+                "what": f" tokens + {P} patches ({side} x {side} grid, "
+                        f"M-RoPE)"}
+    return inputs
+
+
+def audio_inputs(cfg, B: int):
+    """Whisper's inputs: seeded frames, 0.1·N(0, 1), for the prefills,
+    and for decode the encoder's output over them in f32, as the serving
+    CLI computes it (from zero frames there)."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    def inputs(params, gen):
+        frames = 0.1 * torch.randn((B, cfg.encoder.n_frames, cfg.d_model),
+                                   generator=gen, device=DEVICE)
+        with torch.inference_mode():
+            enc = T.encoder_forward(params["encoder"], frames, cfg)
+        return {"prefill": {"frames": frames}, "prompt": {"frames": frames},
+                "decode": {"encoder_out": enc},
+                "what": f" over {cfg.encoder.n_frames} frames"}
+    return inputs
+
+
+def phase_vlm_audio_serving() -> dict:
+    """Qwen2-VL-2B and Whisper-medium at full width and depth (no cut),
+    one after another (memory released between), through
+    ``serve_checks``: Qwen2-VL prefills 1 x (64 patches + 1984 tokens)
+    (28 flash launches at (1, 2048, 12, 2, 128)) and generates 1 x (128 +
+    32) text only; Whisper prefills 4 x 512 over 1500 frames (24 flash
+    launches at (4, 512, 16, 16, 64): its encoder and cross-attention
+    reach none, as in the reference) and generates 4 x (128 + 32) reading
+    the encoder's output.  Checks the parameter counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    out = {"launches": dict.fromkeys(KERNEL_NAMES, 0)}
+    for arch, (B, S, _, _, _) in VLM_AUDIO_ARCHS.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch).model, max_seq_len=S)
+        print(f"  {arch}: full width and depth (no cut)")
+        if cfg.vision is not None:
+            text, inputs = S - cfg.vision.n_patches, vision_inputs(cfg, B)
+        else:
+            text, inputs = S, audio_inputs(cfg, B)
+        res = serve_checks(cfg, B, text, VLM_AUDIO_PROMPT, VLM_AUDIO_GEN,
+                           inputs=inputs)
+        n_params = VLM_AUDIO_TRAIN[arch][1]
+        check(res["n_params"] == n_params,
+              f"{arch}: {res['n_params']} params, expected {n_params}")
+        res["wall_s"] = time.perf_counter() - t0
+        print(f"  {arch}: {res['wall_s']:.3f} s")
+        for k in KERNEL_NAMES:
+            out["launches"][k] += res["launches"][k]
+        out[arch] = res
+    return out
+
+
 # ------------------------------------------------------------------ phase 4
 def phase_timing(W) -> dict:
     """mean_and_sqdev: kernel, plain version and torch.var_mean (a
@@ -1753,10 +1915,11 @@ def phase_qsgd_timing(W) -> dict:
 
 
 def phase_flash_timing() -> dict:
-    """flash attention at the OLMo-1B prefill layer and at each of phase
-    10's dense prefill layers, bf16, causal: the kernel, its plain version
-    and torch's scaled_dot_product_attention (is_causal=True, enable_gqa
-    where K < H; a yardstick the port never calls) by CUDA events; and
+    """flash attention at the OLMo-1B prefill layer and at each of the
+    prefill layers of phases 10 and 13, bf16, causal: the kernel, its
+    plain version and torch's scaled_dot_product_attention
+    (is_causal=True, enable_gqa where K < H; a yardstick the port never
+    calls) by CUDA events; and
     at one prefill_32k layer the kernel and SDPA alone (the plain version's
     f32 logits would take 68 GB).  Prints the kernel's achieved TFLOP/s
     (the FLOPs its bound counts, over its time) and its share of the
@@ -1771,7 +1934,7 @@ def phase_flash_timing() -> dict:
     out = {}
     layers = [("olmo_prefill", OLMO_PREFILL, 20)]
     layers += [(f"{arch}_prefill", shape, 20)
-               for arch, shape in DENSE_ARCHS.items()]
+               for arch, shape in {**DENSE_ARCHS, **VLM_AUDIO_ARCHS}.items()]
     for label, shape, iters in layers + [("prefill_32k", PREFILL_32K, 3)]:
         q, k, v = qkv(shape, torch.bfloat16, gen, DEVICE)
         B, S, H, K, d = shape
@@ -1818,9 +1981,14 @@ def flash_layers(cfg) -> int:
             and cfg.sliding_window == 0 else 0)
 
 
-def serve_checks(cfg, B: int, S: int, P: int, G: int) -> dict:
+def serve_checks(cfg, B: int, S: int, P: int, G: int, inputs=None) -> dict:
     """One model at the depth ``cfg`` gives, parameters from
     init_params(0) on the card (timed), through the server's entry points.
+    ``inputs(params, gen)``, where given, returns the batch entries beside
+    the tokens: ``prefill`` for (a) (a vision prefix with its M-RoPE
+    positions, or frames), ``prompt`` for (c)'s prefill of the prompt,
+    ``decode`` for every decode step of (b) and (c) (``generate``'s
+    ``extra_batch``: the encoder's output), and ``what``, a description.
 
     (a) make_prefill_step on B x S tokens three ways: use_flash (one
         flash launch per layer that reaches it, ``flash_layers``, and no
@@ -1873,7 +2041,8 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int) -> dict:
     gen.manual_seed(5)
     tokens = torch.randint(0, cfg.vocab_size, (B, S),
                            generator=gen, device=DEVICE, dtype=torch.int32)
-    batch = {"tokens": tokens}
+    extra = inputs(params, gen) if inputs is not None else {}
+    batch = {"tokens": tokens, **extra.get("prefill", {})}
 
     def prefill(c, b, reps=3):
         """(last logits, launches of the first call, median ms of reps)."""
@@ -1903,7 +2072,8 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int) -> dict:
              "flash_f32": int((top[0] == top[2]).sum()),
              "plain_f32": int((top[1] == top[2]).sum())}
     none = dict.fromkeys(KERNEL_NAMES, 0)
-    print(f"  (a) prefill {B}x{S}: flash {ms_flash:.3f} ms "
+    print(f"  (a) prefill {B}x{S}{extra.get('what', '')}: flash "
+          f"{ms_flash:.3f} ms "
           f"launches={l_flash}; plain {ms_plain:.3f} ms launches={l_plain}; "
           f"f32 {ms_f32:.3f} ms")
     print(f"  (a) max |last logits - f32|: flash={d_flash!r} "
@@ -1925,7 +2095,9 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int) -> dict:
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    out = serve.generate(flash_cfg, params, prompt, G)
+    decode_extra = extra.get("decode", {})
+    out = serve.generate(flash_cfg, params, prompt, G,
+                         extra_batch=decode_extra)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     l_gen = read_counts()
@@ -1952,12 +2124,14 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int) -> dict:
                                dtype=torch.float32, device=DEVICE)
         for t in range(P):
             logits, caches = M.decode_step(
-                params, {"tokens": prompt[:, t:t + 1]}, caches, c_cfg)
+                params, {"tokens": prompt[:, t:t + 1], **decode_extra},
+                caches, c_cfg)
         dec = logits[:, 0].float()
         del caches
-    pre, _, _ = prefill(c_cfg, {"tokens": prompt}, reps=0)
+    prompt_batch = {"tokens": prompt, **extra.get("prompt", {})}
+    pre, _, _ = prefill(c_cfg, prompt_batch, reps=0)
     pre32, _, _ = prefill(dataclasses.replace(c_cfg, compute_dtype="float32"),
-                          {"tokens": prompt}, reps=0)
+                          prompt_batch, reps=0)
     d_dec = float((dec - pre).abs().max())
     d_bf16 = float((pre - pre32).abs().max())
     same = int((dec.argmax(-1) == pre.argmax(-1)).sum())
@@ -1972,7 +2146,7 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     print(f"  max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) at "
           f"depth {cfg.n_layers} of {cfg.name}")
-    del params
+    del params, extra, batch, decode_extra, prompt_batch
     release()
     return {"launches": {k: l_flash[k] + l_plain[k] + l_gen[k]
                          for k in KERNEL_NAMES},
@@ -2097,11 +2271,26 @@ def main() -> int:
           f"Mixtral-8x22B at full width, 4 of 56 layers  card: {card}")
     moe_serving = phase_moe_serving()
     done("12")
+    print(f"phase 13a: ADPSGD, Qwen2-VL-2B full width and depth (no cut), "
+          f"R=4, momentum  card: {card}")
+    qwen_vl = vlm_audio_training("qwen2-vl-2b", QWEN_VL_ARGV)
+    done("13a")
+    print(f"phase 13b: ADPSGD, Whisper-medium full width and depth (no cut), "
+          f"R=4, adamw, 1500 frames  card: {card}")
+    whisper = vlm_audio_training("whisper-medium", WHISPER_ARGV,
+                                 setup=add_frames)
+    done("13b")
+    print(f"phase 13c: serving Qwen2-VL-2B and Whisper-medium at full width "
+          f"and depth  card: {card}")
+    vlm_audio_serving = phase_vlm_audio_serving()
+    done("13c")
 
     training = {"adpsgd": main_path, "qsgd_periodic": qp, "qsgd": qs}
     paths = dict(training, serving=serving, clock=clock, **strategies,
                  cnn=cnn, resume=resume, dense_serving=dense,
-                 deepseek_training=deepseek, moe_serving=moe_serving)
+                 deepseek_training=deepseek, moe_serving=moe_serving,
+                 qwen_vl_training=qwen_vl, whisper_training=whisper,
+                 vlm_audio_serving=vlm_audio_serving)
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in KERNEL_NAMES}
     print("launches by path: " + json.dumps(
@@ -2161,6 +2350,14 @@ def main() -> int:
     print("summary: moe serving " + json.dumps(
         {arch: {k: v for k, v in moe_serving[arch].items() if k != "launches"}
          for arch in MOE_SERVE}))
+    print("summary: vlm / audio training " + json.dumps(
+        {name: {k: p[k] for k in ("ms", "peak_bytes", "n_syncs", "n_params",
+                                  "s_k_rel", "timing")}
+         for name, p in (("qwen2-vl-2b", qwen_vl),
+                         ("whisper-medium", whisper))}))
+    print("summary: vlm / audio serving " + json.dumps(
+        {arch: {k: v for k, v in vlm_audio_serving[arch].items()
+                if k != "launches"} for arch in VLM_AUDIO_ARCHS}))
     print("summary: phase seconds " + json.dumps(phase_s)
           + f" total {sum(phase_s.values()):.1f}")
     print("summary: clock " + json.dumps(

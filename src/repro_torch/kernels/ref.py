@@ -33,9 +33,17 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def mean_and_sqdev_ref(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """w: (R, ...) -> (f32 mean over axis 0, Σ_i ||mean − w_i||² f32)."""
+    """w: (R, ...) -> (f32 mean over axis 0, Σ_i ||mean − w_i||² f32).
+    The mean sums the replicas in index order and divides by R, as the
+    CUDA kernel does (and ``torch.mean`` on the CPU); ``torch.mean`` on
+    the card adds them in another order in some elements, an ulp apart,
+    and where the replicas differ by a few ulps (a late sync at a small
+    lr) that ulp moves Σ ||mean − w_i||² by 1e-4 of itself."""
     wf = w.reshape(w.shape[0], -1).to(torch.float32)
-    mean = wf.mean(dim=0)
+    mean = wf[0].clone()
+    for x in wf[1:]:
+        mean += x
+    mean /= wf.new_tensor(float(wf.shape[0]))   # a true division on the card
     sq = (wf - mean[None]).square().sum()
     return mean.reshape(w.shape[1:]), sq
 

@@ -6,14 +6,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced   # card
 
 Runs on the card; ``--device cpu`` runs on the CPU.  ``--no-reduced``
-keeps the published widths and ``--layers`` cuts depth.  The dense and
-MoE configs serve (MLA decodes against its latent cache); families whose
-decode state is not ported yet (encoder, SSM, xLSTM) raise
-``NotImplementedError``.  The flash-attention kernel belongs to the
-full-sequence forward (``launch/steps.py::make_prefill_step`` with
-``use_flash`` set on the config) of GQA attention without a sliding
-window, as in the reference: MLA and Mixtral's window bypass it, and
-decoding feeds one token at a time and never reaches it.
+keeps the published widths and ``--layers`` cuts depth.  The dense, MoE,
+vision-language and encoder-decoder configs serve (MLA decodes against
+its latent cache; Qwen2-VL decodes text only; whisper's decoder reads
+the encoder's output over zero frames, computed in f32 as the
+reference's CLI does); families whose decode state is not ported yet
+(SSM, xLSTM) raise ``NotImplementedError``.  The flash-attention kernel
+belongs to the full-sequence forward (``launch/steps.py::
+make_prefill_step`` with ``use_flash`` set on the config) of GQA
+attention without a sliding window, as in the reference: MLA and
+Mixtral's window bypass it, so do the encoder and the cross-attention,
+and decoding feeds one token at a time and never reaches it.
 """
 from __future__ import annotations
 
@@ -27,14 +30,18 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 
 
 def generate(cfg, params, prompt: torch.Tensor, gen_len: int,
-             cache_len: int = 0) -> torch.Tensor:
+             extra_batch=None, cache_len: int = 0) -> torch.Tensor:
     """Greedy decode: feeds the prompt token by token (prefill through the
-    decode path, as the reference does), then takes the argmax.  Returns
-    the prompt and the generated tokens, (B, S + gen_len)."""
+    decode path, as the reference does), then takes the argmax.  The
+    entries of ``extra_batch`` (e.g. ``encoder_out``) join every decode
+    step's batch.  Returns the prompt and the generated tokens,
+    (B, S + gen_len)."""
     B, S = prompt.shape
+    extra = extra_batch or {}
     with torch.inference_mode():
         caches = M.init_caches(cfg, B, cache_len or (S + gen_len),
                                dtype=torch.float32, device=prompt.device)
@@ -42,7 +49,7 @@ def generate(cfg, params, prompt: torch.Tensor, gen_len: int,
         tok = prompt[:, :1]
         out = [tok]
         for t in range(S + gen_len - 1):
-            nxt, caches = serve(params, {"tokens": tok}, caches)
+            nxt, caches = serve(params, {"tokens": tok, **extra}, caches)
             tok = (prompt[:, t + 1:t + 2] if t + 1 < S
                    else nxt[:, None].to(prompt.dtype))
             out.append(tok)
@@ -77,10 +84,17 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
     gen.manual_seed(args.seed)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device, dtype=torch.int32)
+    extra = {}
+    if cfg.encoder is not None:
+        frames = torch.zeros((args.batch, cfg.encoder.n_frames, cfg.d_model),
+                             device=device)
+        with torch.inference_mode():
+            extra["encoder_out"] = T.encoder_forward(params["encoder"],
+                                                     frames, cfg)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.time()
-    out = generate(cfg, params, prompt, args.gen)
+    out = generate(cfg, params, prompt, args.gen, extra_batch=extra)
     sample = out[0, -min(16, args.gen):].tolist()   # waits for the device
     dt = time.time() - t0
     n_new = args.batch * args.gen

@@ -1,4 +1,4 @@
-"""Core neural-net layers (port of the decoder-only subset of
+"""Core neural-net layers (port of the attention-family part of
 ``repro/models/layers.py``).
 
 Functional, as the reference: ``init_*`` builds a parameter tree (nested
@@ -7,11 +7,11 @@ reference's ``jax.random`` key, and ``*_forward`` consumes it.  The weight layou
 reference's — dense ``w`` is ``(d_in, d_out)`` and the product is
 ``x @ w`` — so reference parameters copy across with no transposes.
 Attention is GQA, over the full sequence (the flash-attention kernel when
-``cfg.use_flash`` asks for it) or one token against a KV cache, or
-DeepSeek-V2's multi-head latent attention (MLA) against a latent cache;
-the feed-forward is the SwiGLU MLP or the grouped-dispatch mixture of
-experts.  M-RoPE, cross attention and the gelu MLP come with later parts
-of the port.
+``cfg.use_flash`` asks for it) or one token against a KV cache, with RoPE
+or Qwen2-VL's M-RoPE; cross attention over an encoder's keys and values;
+or DeepSeek-V2's multi-head latent attention (MLA) against a latent cache.
+The feed-forward is the SwiGLU or GELU MLP or the grouped-dispatch mixture
+of experts.
 """
 from __future__ import annotations
 
@@ -113,8 +113,53 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
     return torch.cat([out1.to(x.dtype), out2.to(x.dtype), xp], dim=-1)
 
 
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B,S,H,dh); pos3: (3,B,S) int, the
+    temporal / height / width position ids.  ``sections`` partitions the
+    dh/2 frequency slots: slot f takes its angle from row ``sel[f]``.  The
+    reference's one-hot contraction selects exactly one term per slot, so
+    an index gather gives the same values."""
+    dh = x.shape[-1]
+    if sum(sections) != dh // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not cover dh/2 = "
+                         f"{dh // 2}")
+    inv = rope_freqs(dh, theta, x.device)                    # (dh/2,)
+    ang = pos3[..., None].to(torch.float32) * inv            # (3,B,S,dh/2)
+    sel = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))             # (dh/2,)
+    ang = ang.gather(0, sel.expand(1, *ang.shape[1:]))[0]    # (B,S,dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., : dh // 2], x[..., dh // 2:]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    return torch.cat([out1.to(x.dtype), out2.to(x.dtype)], dim=-1)
+
+
+def sinusoids(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """pos (N,) f32 -> (N, d) f32: sin of pos / 10000^(2i/d) in the first
+    half, cos in the second.  The reference's f32 ``jnp.power`` is
+    correctly rounded on the CPU and ``torch.pow`` in f32 is not always
+    (4 of 512 denominators at d 1024 differ by an ulp, which moves the
+    sines of large angles by far more), so the power of the f32 exponent
+    is taken in f64 and rounded once; exponent, quotient, sine and cosine
+    stay f32."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    denom = torch.pow(10000.0, (2 * dim / d).double()).to(torch.float32)
+    ang = pos.to(torch.float32)[:, None] / denom[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_embedding(n_pos: int, d: int, device=None) -> torch.Tensor:
+    """(n_pos, d) f32, the table of positions 0 .. n_pos - 1."""
+    return sinusoids(torch.arange(n_pos, dtype=torch.float32, device=device),
+                     d)
+
+
 # ---------------------------------------------------------------------------
-# Attention (GQA) with optional KV cache
+# Attention (GQA / cross) with optional KV cache
 # ---------------------------------------------------------------------------
 
 
@@ -213,6 +258,9 @@ def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                       positions: torch.Tensor,
                       cache: Optional[Params] = None,
                       cache_index: Optional[torch.Tensor] = None,
+                      cross_kv: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None,
+                      mrope_pos: Optional[torch.Tensor] = None,
                       ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (output, updated cache).
 
@@ -223,9 +271,14 @@ def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
       tensor) picks the write slot.  The cache's buffers are updated in
       place (the reference returns new buffers; the port saves their
       copies) and the cache is returned.
+    * cross: ``cross_kv`` = the encoder's (k, v), each (B,Te,K,dh); x
+      attends to all of it (``_sdpa`` under an all-true mask, never
+      flash) and the cache comes back untouched.
 
-    MLA configs go to ``_mla_forward``, which never reaches flash, as in
-    the reference.
+    Queries and keys turn by M-RoPE (``mrope_pos`` (3,B,S)) where
+    ``pos_type`` is ``mrope``, by RoPE where it is ``rope``.  MLA configs
+    go to ``_mla_forward``, which never reaches flash, as in the
+    reference.
     """
     if cfg.attention_type == "mla":
         return _mla_forward(p, x, cfg, positions=positions, cache=cache,
@@ -233,9 +286,19 @@ def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     B, S, _ = x.shape
     H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     q = dense(p["wq"], x).reshape(B, S, H, dh)
+    if cross_kv is not None:
+        k, v = cross_kv
+        mask = torch.ones((B, S, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap)
+        return dense(p["wo"], out.reshape(B, S, H * dh)), cache
     k = dense(p["wk"], x).reshape(B, S, Kh, dh)
     v = dense(p["wv"], x).reshape(B, S, Kh, dh)
-    if cfg.pos_type == "rope":
+    if cfg.pos_type == "mrope":
+        sections = cfg.vision.mrope_sections
+        q = apply_mrope(q, mrope_pos, cfg.rope_theta, sections)
+        k = apply_mrope(k, mrope_pos, cfg.rope_theta, sections)
+    elif cfg.pos_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)
 
@@ -321,24 +384,33 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 def init_mlp(key: prng.Key, cfg: ModelConfig, d_ff: Optional[int] = None,
              *, device: DeviceLike = None) -> Params:
-    """SwiGLU (every ported config; whisper's gelu comes with the audio
-    family) of width ``d_ff or cfg.d_ff``: the shared experts and the
+    """SwiGLU, or where ``mlp_type`` is ``gelu`` (whisper) an up and a
+    down projection with biases drawn from ``ks[0]`` and ``ks[1]``, as the
+    reference's; of width ``d_ff or cfg.d_ff``: the shared experts and the
     dense layers below ``first_k_dense`` pass their own."""
     dt = dtype_of(cfg.param_dtype)
     D, Fd = cfg.d_model, d_ff or cfg.d_ff
     ks = prng.split(key, 3)
     kw = dict(dtype=dt, device=device)
+    if cfg.mlp_type == "swiglu":
+        return {
+            "w_gate": dense_init(ks[0], D, Fd, **kw),
+            "w_up": dense_init(ks[1], D, Fd, **kw),
+            "w_down": dense_init(ks[2], Fd, D, **kw),
+        }
     return {
-        "w_gate": dense_init(ks[0], D, Fd, **kw),
-        "w_up": dense_init(ks[1], D, Fd, **kw),
-        "w_down": dense_init(ks[2], Fd, D, **kw),
+        "w_up": dense_init(ks[0], D, Fd, bias=True, **kw),
+        "w_down": dense_init(ks[1], Fd, D, bias=True, **kw),
     }
 
 
 def mlp_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU."""
-    return dense(p["w_down"], F.silu(dense(p["w_gate"], x))
-                 * dense(p["w_up"], x))
+    """SwiGLU, or GELU in ``jax.nn.gelu``'s default form, the tanh
+    approximation."""
+    if "w_gate" in p:
+        return dense(p["w_down"], F.silu(dense(p["w_gate"], x))
+                     * dense(p["w_up"], x))
+    return dense(p["w_down"], F.gelu(dense(p["w_up"], x), approximate="tanh"))
 
 
 # ---------------------------------------------------------------------------

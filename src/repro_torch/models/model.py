@@ -1,16 +1,25 @@
 """Model API: init, full-sequence forward (train / prefill), single-token
 decode against caches, and the LM loss (port of ``repro/models/model.py``
-for decoder-only LMs: dense, MoE and MLA).
+for the attention families: dense, MoE, MLA, the vision-language model and
+the encoder-decoder).
 
-A batch is a dict with ``tokens`` (B,S) int and optionally ``positions``
-(B,S) and ``loss_mask`` (B,S-1); for decode steps it carries a single
-token column (B,1).  The reference's ``lax.scan`` over layers and its
-rematerialisation are compile and memory devices, not numerics; here the
-layers run in a plain Python loop.
+A batch is a dict with keys by family:
+  tokens        (B,S) int                     — always
+  positions     (B,S) int                     — optional (default arange)
+  loss_mask     (B,S-1)                       — optional
+  mrope_pos     (3,B,S) int                   — vlm (M-RoPE); text-only
+                                                default t = h = w = position
+  vision_embeds (B,P,D)                       — vlm patch-embedding stub,
+                                                prepended to the tokens
+  frames        (B,T,D)                       — audio frontend stub (forward)
+  encoder_out   (B,T,D)                       — the encoder's output (decode)
+For decode steps it carries a single token column (B,1).  The reference's
+``lax.scan`` over layers and its rematerialisation are compile and memory
+devices, not numerics; here the layers run in a plain Python loop.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -25,16 +34,9 @@ Params = Dict[str, Any]
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    missing = [name for name, on in (
-        ("encoder", cfg.encoder is not None),
-        ("vision", cfg.vision is not None),
-        ("layer_pattern", cfg.layer_pattern is not None),
-        (f"pos_type={cfg.pos_type}", cfg.pos_type not in ("rope", "none")),
-        (f"mlp_type={cfg.mlp_type}", cfg.mlp_type != "swiglu"),
-    ) if on]
-    if missing:
+    if cfg.layer_pattern is not None:
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet: {', '.join(missing)}")
+            f"{cfg.name}: not ported yet: layer_pattern")
 
 
 def init_params(seed: int, cfg: ModelConfig, *,
@@ -42,7 +44,9 @@ def init_params(seed: int, cfg: ModelConfig, *,
     """Random parameters from ``seed``, the reference's
     ``init_params(jax.random.PRNGKey(seed), cfg)``: the same key splits
     and ``jax.random.normal`` draws (``core/prng.py``, a few ulps), each
-    scaled and then cast to ``param_dtype`` as there."""
+    scaled and then cast to ``param_dtype`` as there.  An encoder-decoder
+    adds each attention block's cross-attention, from
+    ``fold_in(ks[2 + i], 7)``, and the encoder tower, from ``ks[-1]``."""
     _check_ported(cfg)
     device = resolve_device(device)
     dt = L.dtype_of(cfg.param_dtype)
@@ -52,13 +56,20 @@ def init_params(seed: int, cfg: ModelConfig, *,
     p: Params = {
         "embed": embed.mul_(0.02).to(dt),
         "final_norm": L.init_norm(ks[1], cfg, cfg.d_model, device=device),
-        "blocks": [T.init_block(ks[2 + i], cfg, i, device=device)
-                   for i in range(cfg.n_layers)],
+        "blocks": [],
     }
+    for i in range(cfg.n_layers):
+        blk = T.init_block(ks[2 + i], cfg, i, device=device)
+        if cfg.encoder is not None and cfg.block_kind(i) == "attn":
+            blk = T.init_cross_attention(prng.fold_in(ks[2 + i], 7), cfg,
+                                         blk, device=device)
+        p["blocks"].append(blk)
     if not cfg.tie_embeddings:
         head = prng.normal(ks[-2], (cfg.d_model, cfg.padded_vocab()),
                            device=device)
         p["lm_head"] = head.div_(cfg.d_model ** 0.5).to(dt)
+    if cfg.encoder is not None:
+        p["encoder"] = T.init_encoder(ks[-1], cfg, device=device)
     return p
 
 
@@ -99,23 +110,70 @@ def active_param_count(cfg: ModelConfig, params: Params) -> int:
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward.  Returns (logits (B,S,V), aux losses: each
-    MoE layer's summed over the layers, in layer order)."""
+    MoE layer's summed over the layers, in layer order).  S includes a
+    vision prefix where the batch carries one."""
     _check_ported(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    cdt = L.dtype_of(cfg.compute_dtype)
-    x = params["embed"][tokens].to(cdt) * cfg.emb_scale
-    pos = batch.get("positions")
-    if pos is None:
-        pos = torch.arange(S, dtype=torch.int32,
-                           device=tokens.device).expand(B, S)
+    x, pos, mrope = _embed_inputs(params, batch, cfg)
+    enc_out = _encode_cross(params, batch, cfg)
     aux_total: Dict[str, torch.Tensor] = {}
     for i, blk in enumerate(params["blocks"]):
-        x, aux, _ = T.block_forward(blk, x, cfg, i, positions=pos)
+        x, aux, _ = T.block_forward(
+            blk, x, cfg, i, positions=pos,
+            cross_kv=_layer_cross_kv(blk, enc_out, cfg), mrope_pos=mrope)
         for k, v in aux.items():
             aux_total[k] = aux_total.get(k, 0.0) + v
     x = L.norm_forward(params["final_norm"], x, cfg)
     return _lm_head(params, x, cfg), aux_total
+
+
+def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             Optional[torch.Tensor]]:
+    """(x, positions, mrope_pos).  The vision prefix joins after
+    ``emb_scale`` and is not scaled; positions run over the whole
+    prefixed sequence; text-only M-RoPE takes t = h = w = position;
+    ``learned`` positions add the sinusoidal table, as the reference's."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    cdt = L.dtype_of(cfg.compute_dtype)
+    x = params["embed"][tokens].to(cdt) * cfg.emb_scale
+    mrope = batch.get("mrope_pos")
+    if cfg.vision is not None and "vision_embeds" in batch:
+        x = torch.cat([batch["vision_embeds"].to(cdt), x], dim=1)
+        S = x.shape[1]
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=tokens.device).expand(B, S)
+    if cfg.pos_type == "mrope" and mrope is None:
+        mrope = pos[None].expand(3, B, S)
+    if cfg.pos_type == "learned":
+        x = x + L.sinusoidal_embedding(S, cfg.d_model, x.device).to(cdt)[None]
+    return x, pos, mrope
+
+
+def _encode_cross(params: Params, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig) -> Optional[torch.Tensor]:
+    """The encoder's output over ``batch["frames"]``, cast to the compute
+    dtype first; None without an encoder."""
+    if cfg.encoder is None:
+        return None
+    frames = batch["frames"].to(L.dtype_of(cfg.compute_dtype))
+    return T.encoder_forward(params["encoder"], frames, cfg)
+
+
+def _layer_cross_kv(blk: Params, enc_out: Optional[torch.Tensor],
+                    cfg: ModelConfig):
+    """One block's cross-attention keys and values, each (B,Te,K,dh),
+    projected from the encoder's output.  Every layer projects them again
+    on every call (each decode step too), as the reference does."""
+    if enc_out is None or "cross" not in blk:
+        return None
+    B, Te, _ = enc_out.shape
+    shape = (B, Te, cfg.n_kv_heads, cfg.head_dim())
+    return (L.dense(blk["cross"]["wk"], enc_out).reshape(shape),
+            L.dense(blk["cross"]["wv"], enc_out).reshape(shape))
 
 
 def _lm_head(params, x, cfg):
@@ -132,7 +190,9 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor],
                 ) -> Tuple[torch.Tensor, Params]:
     """One-token decode.  batch["tokens"]: (B,1).  Returns (logits (B,1,V),
     updated caches); the layers' buffers are updated in place.  MoE aux
-    losses are dropped, as in the reference."""
+    losses are dropped, as in the reference.  M-RoPE defaults to t = h =
+    w = position, the learned position is the sinusoid at the cache
+    index, and an encoder-decoder reads ``batch["encoder_out"]``."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -144,10 +204,19 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor],
     pos = batch.get("positions")
     if pos is None:
         pos = idx.to(torch.int32).reshape(1, 1).expand(B, 1)
+    mrope = batch.get("mrope_pos")
+    if cfg.pos_type == "mrope" and mrope is None:
+        mrope = pos[None].expand(3, B, 1)
+    if cfg.pos_type == "learned":
+        pe = L.sinusoids(idx.reshape(1), cfg.d_model)
+        x = x + pe.to(cdt)[None]
+    enc_out = batch.get("encoder_out")
     new_layers = []
     for i, blk in enumerate(params["blocks"]):
-        x, _, nc = T.block_forward(blk, x, cfg, i, positions=pos,
-                                   cache=caches["layers"][i], cache_index=idx)
+        x, _, nc = T.block_forward(
+            blk, x, cfg, i, positions=pos, cache=caches["layers"][i],
+            cache_index=idx, cross_kv=_layer_cross_kv(blk, enc_out, cfg),
+            mrope_pos=mrope)
         new_layers.append(nc)
     x = L.norm_forward(params["final_norm"], x, cfg)
     return _lm_head(params, x, cfg), {"layers": new_layers, "index": idx + 1}
@@ -155,9 +224,9 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor],
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy plus the MoE aux losses.  ``logsumexp −
-    gather`` takes the place of the reference's one-hot contraction (same
-    value, no (B,S,V) one-hot)."""
+    """Next-token cross-entropy plus the MoE aux losses; a vision prefix
+    is not scored.  ``logsumexp − gather`` takes the place of the
+    reference's one-hot contraction (same value, no (B,S,V) one-hot)."""
     logits, aux = forward(params, batch, cfg)
     tokens = batch["tokens"]
     S = tokens.shape[1]

@@ -1,10 +1,13 @@
 """Block composition (port of the attention-block part of
 ``repro/models/transformer.py``): a pre-norm attention sublayer (GQA or
-MLA) and a feed-forward sublayer (SwiGLU MLP or mixture of experts), over
-the full sequence or one token against the block's cache.  Mamba and
-xLSTM blocks come with their families."""
+MLA), a feed-forward sublayer (SwiGLU or GELU MLP, or mixture of
+experts) and, in an encoder-decoder (whisper), a cross-attention
+sublayer, over the full sequence or one token against the block's cache;
+and whisper's bidirectional encoder tower.  Mamba and xLSTM blocks come
+with their families."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -62,13 +65,20 @@ def block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
                   *, positions: torch.Tensor,
                   cache: Optional[Params] = None,
                   cache_index: Optional[torch.Tensor] = None,
+                  cross_kv: Optional[Tuple[torch.Tensor,
+                                           torch.Tensor]] = None,
+                  mrope_pos: Optional[torch.Tensor] = None,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                              Optional[Params]]:
     """Returns (x, the feed-forward's aux losses — empty but for MoE —,
-    the block's updated cache — None without a cache)."""
+    the block's updated cache — None without a cache).  The cross
+    sublayer (a block with ``cross`` given ``cross_kv``) runs after the
+    feed-forward, as in the reference, which documents the choice; the
+    published whisper puts it between self-attention and the MLP."""
     h = L.norm_forward(p["norm1"], x, cfg)
     h, new_cache = L.attention_forward(p["attn"], h, cfg, positions=positions,
-                                       cache=cache, cache_index=cache_index)
+                                       cache=cache, cache_index=cache_index,
+                                       mrope_pos=mrope_pos)
     x = x + h * cfg.residual_scale
     aux: Dict[str, torch.Tensor] = {}
     if "norm2" in p:
@@ -78,4 +88,76 @@ def block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
         else:
             h = L.mlp_forward(p["mlp"], h, cfg)
         x = x + h * cfg.residual_scale
+    if cross_kv is not None and "cross" in p:
+        h = L.norm_forward(p["cross_norm"], x, cfg)
+        h, _ = L.attention_forward(p["cross"], h, cfg, positions=positions,
+                                   cross_kv=cross_kv)
+        x = x + h * cfg.residual_scale
     return x, aux, new_cache
+
+
+def init_cross_attention(key: prng.Key, cfg: ModelConfig, p: Params, *,
+                         device: DeviceLike = None) -> Params:
+    """Adds the cross-attention (``ks[0]``) and its norm to block ``p``."""
+    ks = prng.split(key, 2)
+    p["cross"] = L.init_attention(ks[0], cfg, device=device)
+    p["cross_norm"] = L.init_norm(ks[1], cfg, cfg.d_model, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Encoder tower (whisper): bidirectional, sinusoidal positions
+# ---------------------------------------------------------------------------
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The decoder's config with the encoder's heads (MHA, d_head from
+    d_model), no layer pattern, no experts, no positions in attention."""
+    e = cfg.encoder
+    return dataclasses.replace(cfg, n_heads=e.n_heads, n_kv_heads=e.n_heads,
+                               layer_pattern=None, moe=None, d_head=0,
+                               pos_type="none", sliding_window=0)
+
+
+def init_encoder(key: prng.Key, cfg: ModelConfig, *,
+                 device: DeviceLike = None) -> Params:
+    """The reference's draws: the key splits ``n_layers + 1`` ways; layer
+    i's attention from ``fold_in(ks[i], 1)``, its MLP from
+    ``fold_in(ks[i], 3)``."""
+    e, ecfg = cfg.encoder, _encoder_cfg(cfg)
+    ks = prng.split(key, e.n_layers + 1)
+    blocks = [{
+        "norm1": L.init_norm(ks[i], ecfg, cfg.d_model, device=device),
+        "attn": L.init_attention(prng.fold_in(ks[i], 1), ecfg, device=device),
+        "norm2": L.init_norm(prng.fold_in(ks[i], 2), ecfg, cfg.d_model,
+                             device=device),
+        "mlp": L.init_mlp(prng.fold_in(ks[i], 3), ecfg, device=device),
+    } for i in range(e.n_layers)]
+    return {"blocks": blocks,
+            "final_norm": L.init_norm(ks[-1], ecfg, cfg.d_model,
+                                      device=device)}
+
+
+def encoder_forward(p: Params, frames: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """frames: (B,T,D) post-frontend embeddings (the stub).  Sinusoidal
+    positions, then each block: bidirectional attention (``_sdpa`` under an
+    all-true mask; never flash, as in the reference) and the MLP, each
+    pre-norm with a plain residual; the final norm.  The reference's scan
+    and remat over the blocks are compile and memory devices; a Python
+    loop computes the same."""
+    e, ecfg = cfg.encoder, _encoder_cfg(cfg)
+    B, T, D = frames.shape
+    dh = D // e.n_heads
+    x = frames + L.sinusoidal_embedding(T, D, frames.device).to(
+        frames.dtype)[None]
+    mask = torch.ones((B, T, T), dtype=torch.bool, device=frames.device)
+    for blk in p["blocks"]:
+        h = L.norm_forward(blk["norm1"], x, ecfg)
+        q, k, v = (L.dense(blk["attn"][w], h).reshape(B, T, e.n_heads, dh)
+                   for w in ("wq", "wk", "wv"))
+        o = L._sdpa(q, k, v, mask)
+        x = x + L.dense(blk["attn"]["wo"], o.reshape(B, T, D))
+        h = L.norm_forward(blk["norm2"], x, ecfg)
+        x = x + L.mlp_forward(blk["mlp"], h, ecfg)
+    return L.norm_forward(p["final_norm"], x, ecfg)

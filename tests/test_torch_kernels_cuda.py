@@ -62,11 +62,32 @@ DEEPSEEK_LEAF_SHAPES = [(64, 2048, 1408), (64, 1408, 2048), (2048, 64),
                         (2048, 102400)]
 
 
+# each distinct leaf shape of Qwen2-VL-2B's and Whisper-medium's training
+# paths (R = 4) that OLMo's and DeepSeek's have not: the embeddings, the
+# attention projections (Qwen2-VL's two KV heads: 256 wide), the MLPs, the
+# QKV and GELU biases, the norms
+VLM_AUDIO_LEAF_SHAPES = [(151936, 1536), (1536, 1536), (1536, 256),
+                         (1536, 8960), (8960, 1536), (256,), (1536,),
+                         (51865, 1024), (1024, 1024), (1024, 4096),
+                         (4096, 1024), (4096,), (1024,)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", DEEPSEEK_LEAF_SHAPES)
 def test_kernel_at_deepseek_leaf_shapes(cuda, shape):
     """R = 4, drawn on the card.  sq rtol 1e-5, or 1e-4 past 1e8 elements
     a replica (the order of summation over 4e8 terms and more differs)."""
+    _check_leaf(cuda, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", VLM_AUDIO_LEAF_SHAPES)
+def test_kernel_at_vlm_audio_leaf_shapes(cuda, shape):
+    """As at DeepSeek's leaf shapes."""
+    _check_leaf(cuda, shape)
+
+
+def _check_leaf(cuda, shape):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(len(shape) * 7 + shape[0])
     w = torch.randn((4, *shape), generator=gen, device=cuda)
@@ -341,16 +362,19 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, H, K, d, dtype, tol,
 
 
 # (B, S, H, K, d) of one prefill layer of each dense config served:
-# MiniCPM-2B (MHA, d 64), GLM4-9B (16:1 GQA) and Qwen2.5-14B (5:1 GQA)
+# MiniCPM-2B (MHA, d 64), GLM4-9B (16:1 GQA) and Qwen2.5-14B (5:1 GQA);
+# then Qwen2-VL-2B (6:1 GQA, 64 patches + 1984 tokens) and Whisper-medium's
+# decoder (MHA at d 64, batch 4)
 DENSE_PREFILL = [(1, 2048, 36, 36, 64), (1, 2048, 32, 2, 128),
-                 (1, 2048, 40, 8, 128)]
+                 (1, 2048, 40, 8, 128), (1, 2048, 12, 2, 128),
+                 (4, 512, 16, 16, 64)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,K,d", DENSE_PREFILL)
 def test_flash_attention_dense_prefill_layers(cuda, B, S, H, K, d):
-    """bf16, causal, at the prefill layers of the three dense configs,
-    against the plain version (atol = rtol = 2e-2) and bitwise repeated."""
+    """bf16, causal, at the prefill layers of the served configs, against
+    the plain version (atol = rtol = 2e-2) and bitwise repeated."""
     g = torch.Generator(device=cuda).manual_seed(H * d + K)
     q = torch.randn(B, S, H, d, generator=g, device=cuda).to(torch.bfloat16)
     k, v = (torch.randn(B, S, K, d, generator=g, device=cuda)
