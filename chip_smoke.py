@@ -9,7 +9,8 @@ kernel against its plain PyTorch version on the card, then drives the
 port's paths through the trainer's own entry points — OLMo-1B at its
 published width, cut to 4 layers, R = 4 replicas, adamw:
 
-* 3  ADPSGD, 16 steps (the fused mean + sqdev kernel in every sync);
+* 3  ADPSGD, 16 steps (the fused mean + sqdev kernel in every sync, one
+     launch over all 29 leaves);
 * 3b qsgd_periodic, 16 steps (QSGD-quantized deltas on ADPSGD's schedule:
      sqnorm once per leaf over its 4 deltas, quantize, dequantize and mean
      + sqdev in every quantized sync);
@@ -48,13 +49,15 @@ reference).  Each path is driven with the launch counts set to 0 just
 before it and read just after.
 
 Phases: 1 environment and build (no kernel may spill registers; TF32
-off, deterministic cuDNN); 2 kernels against their plain versions; 3,
-3b, 3c the training paths; 4 kernel timings; 5 serving; 6 the clock; 7
-the last three strategies; 8 the CNN experiment; 9 checkpoint / resume;
-10 the dense configs served; 11 the MoE family trained; 12 the MoE family
-served; 13a-c the vision-language and audio models trained and served.
-Each phase prints its seconds.  Any failed check exits
-non-zero.
+off, deterministic cuDNN); 2 kernels against their plain versions (the
+grouped mean + sqdev in its three modes at every case and on a tree of
+the cases at each R; the training phases hold it again on their final
+W, and time one sync of it four ways); 3, 3b, 3c the training paths; 4
+kernel timings; 5 serving; 6 the clock; 7 the last three strategies; 8
+the CNN experiment; 9 checkpoint / resume; 10 the dense configs served;
+11 the MoE family trained; 12 the MoE family served; 13a-c the
+vision-language and audio models trained and served.  Each phase prints
+its seconds.  Any failed check exits non-zero.
 The card's ``nvidia-smi`` name and power limit stand on the line before
 the ``{"kernels": [...]}`` line, and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -136,6 +139,10 @@ QSGD_CASES = ([((n,), b) for n in (7, 1000, 1024, 4097) for b in (4, 8)]
               + [(s, BITS) for s in LEAF_SHAPES + CNN_LEAF_SHAPES])
 KERNEL_NAMES = ("mean_and_sqdev", "sqnorm", "quantize", "dequantize",
                 "flash_attention")
+# the counts a path is held to: each kernel's launches, and the leaves
+# mean_and_sqdev's launches covered (a grouped launch covers a whole tree)
+LEAVES = "mean_and_sqdev.leaves"
+COUNTS = KERNEL_NAMES + (LEAVES,)
 # flash attention (B, S, H, K, d), or (B, Sq, Sk, H, K, d): the reference's
 # kernel-test shapes; the OLMo-1B prefill layer; GLM4-9B's GQA heads
 # (configs/glm4_9b.py: H 32, K 2, d 128); one layer of the reference's
@@ -220,12 +227,16 @@ def kernel_fns():
 
 
 def reset_counts() -> None:
-    for fn in kernel_fns().values():
+    fns = kernel_fns()
+    for fn in fns.values():
         fn.launches = 0
+    fns["mean_and_sqdev"].leaves = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_fns().items()}
+    fns = kernel_fns()
+    return dict({name: fn.launches for name, fn in fns.items()},
+                **{LEAVES: fns["mean_and_sqdev"].leaves})
 
 
 def release() -> None:
@@ -262,11 +273,21 @@ def bound(n_bytes: float, n_ops: float,
 
 
 def mean_sqdev_bound(shapes) -> tuple:
-    """mean_and_sqdev over stacked buffers of ``shapes``: each input read
-    once and the mean written once; about 4 f32 operations per input."""
+    """mean_and_sqdev over stacked buffers of ``shapes`` in mode mean: each
+    input read once and the mean written once; about 4 f32 operations per
+    input."""
     n_in = sum(math.prod(s) for s in shapes)
     n_out = sum(math.prod(s[1:]) for s in shapes)
     return bound((n_in + n_out) * 4, 4 * n_in)
+
+
+def fused_sync_bound(shapes) -> tuple:
+    """The grouped sync, or DaSGD's snapshot, over stacked buffers of
+    ``shapes``: each input read once and R values written back for each
+    column (the mean into every replica, or the deltas); about 4 f32
+    operations per input."""
+    n = sum(math.prod(s) for s in shapes)
+    return bound(8 * n, 4 * n)
 
 
 def qsgd_bound(name: str, n: int) -> tuple:
@@ -343,6 +364,132 @@ def phase_kernels(device) -> dict:
     check(float(sq) < 1e-10, "identical replicas give sq >= 1e-10")
     release()
     return {"max_abs_err": max_mean_err, "max_sq_rel_err": max_sq_rel}
+
+
+def check_grouped(leaves, source, label: str) -> dict:
+    """The grouped mean_and_sqdev in its three modes over ``leaves`` (one
+    tree, on the card) against the plain version: the means (the output
+    of mode mean, every row after the sync) and the deltas bitwise; W
+    bitwise unchanged by mean and delta; each leaf's sq within rtol 1e-5,
+    or 1e-4 on a leaf of more than 1e8 elements a replica (f32 sums over
+    4e8 terms and more in another order); S_k within rtol 1e-5; each mode
+    run twice and bitwise the same; one launch covering every leaf per
+    call.  ``source(i)`` gives leaf i as it was: the sync writes W, which
+    is put back from it before the repeat.  Returns the largest
+    errors."""
+    import torch
+    from repro_torch.kernels import param_variance as pv
+    from repro_torch.kernels.ref import mean_and_sqdev_ref
+
+    R, L = leaves[0].shape[0], len(leaves)
+    means, sqs = zip(*(mean_and_sqdev_ref(x) for x in leaves))
+    want_sq, want_s_k = torch.stack(sqs), sum(sqs) / R
+    tol = torch.tensor([1e-4 if x[0].numel() > 1e8 else 1e-5
+                        for x in leaves], device=want_sq.device)
+    sq_rel = s_k_rel = 0.0
+    for mode in ("mean", "delta", "sync"):
+        runs = []
+        for rep in range(2):
+            if mode == "sync" and rep:
+                for i, x in enumerate(leaves):
+                    x.copy_(source(i))
+            out = None if mode == "sync" else pv.new_out(leaves, mode)
+            before = (pv.mean_and_sqdev.launches, pv.mean_and_sqdev.leaves)
+            sq, s_k = pv.mean_and_sqdev_many(leaves, mode, out)
+            launched = (pv.mean_and_sqdev.launches - before[0],
+                        pv.mean_and_sqdev.leaves - before[1])
+            views = None if out is None else pv.out_views(out, leaves, mode)
+            for i, (x, m) in enumerate(zip(leaves, means)):
+                if mode == "sync":
+                    ok = torch.equal(x, m.unsqueeze(0).expand_as(x))
+                elif mode == "mean":
+                    ok = torch.equal(views[i], m)
+                else:
+                    ok = torch.equal(views[i], m.unsqueeze(0) - x)
+                check(ok, f"{label}: mode {mode} differs from plain at leaf "
+                          f"{i} {tuple(x.shape)}")
+            del out, views
+            runs.append((sq, s_k))
+            check(launched == (1, L), f"{label}: mode {mode} made "
+                                      f"{launched} (launches, leaves)")
+        (sq, s_k), (sq2, s_k2) = runs
+        check(torch.equal(sq, sq2) and torch.equal(s_k, s_k2),
+              f"{label}: mode {mode} not bitwise repeatable")
+        check(bool(((sq - want_sq).abs() <= tol * want_sq).all()),
+              f"{label}: mode {mode} sq beyond its tolerance")
+        rel = abs(float(s_k) - float(want_s_k)) / max(float(want_s_k), 1e-30)
+        check(rel <= 1e-5, f"{label}: mode {mode} S_k rel {rel} > 1e-5")
+        pos = want_sq > 0
+        if bool(pos.any()):
+            sq_rel = max(sq_rel, float(((sq - want_sq).abs()[pos]
+                                        / want_sq[pos]).max()))
+        s_k_rel = max(s_k_rel, rel)
+        if mode == "delta":        # the four reads left W as it was
+            check(all(torch.equal(x, source(i))
+                      for i, x in enumerate(leaves)),
+                  f"{label}: mode mean or delta wrote W")
+    print(f"  grouped {label}: {L} leaves R={R} s_k={float(want_s_k)!r} "
+          f"max sq rel {sq_rel:.3e} s_k rel {s_k_rel:.3e}; means, deltas "
+          f"bitwise; repeats bitwise; 1 launch a call")
+    return {"sq_rel": sq_rel, "s_k_rel": s_k_rel}
+
+
+def phase_grouped_kernels(device) -> dict:
+    """The grouped mean_and_sqdev (``check_grouped``) at every
+    ``KERNEL_CASES`` shape alone, then on one tree of all the cases' shapes
+    at each R that has several; W drawn on the card from a seed per leaf,
+    and drawn again to put it back or to hold it unchanged."""
+    import torch
+
+    gen = torch.Generator(device=device)
+
+    def draw(R, shape, seed):
+        gen.manual_seed(seed)
+        return torch.randn((R, *shape), generator=gen, device=device)
+
+    worst = {"sq_rel": 0.0, "s_k_rel": 0.0}
+    cases = [(R, shape, 100 + i) for i, (R, shape) in enumerate(KERNEL_CASES)]
+    trees = [[case] for case in cases]
+    for R in sorted({r for r, _ in KERNEL_CASES}):
+        tree = [case for case in cases if case[0] == R]
+        if len(tree) > 1:
+            trees.append(tree)
+    for tree in trees:
+        R = tree[0][0]
+        leaves = [draw(*leaf) for leaf in tree]
+        label = (f"R={R} {tree[0][1]}" if len(tree) == 1
+                 else f"tree of the R={R} cases")
+        errs = check_grouped(leaves, lambda i, t=tree: draw(*t[i]), label)
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+        del leaves
+    release()
+    return worst
+
+
+def check_grouped_on_W(W, label: str, seed: int) -> dict:
+    """``check_grouped`` on a training phase's final W, after its optimizer
+    state is freed: 0.01·N(0, 1) from ``seed`` is added to every replica
+    first (a run may end on a sync, which leaves the replicas equal), and
+    W is kept on the host to put it back and to hold it unchanged."""
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(W)
+    gen = torch.Generator(device=leaves[0].device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for x in leaves:
+            x.add_(torch.randn(x.shape, generator=gen, device=x.device),
+                   alpha=0.01)
+    host = [x.to("cpu", copy=True) for x in leaves]
+
+    def source(i):
+        return host[i].to(leaves[i].device)
+    t0 = time.perf_counter()
+    errs = check_grouped(leaves, source, label)
+    print(f"  grouped {label}: {time.perf_counter() - t0:.1f} s")
+    del host
+    return errs
 
 
 def phase_qsgd_kernels(device) -> dict:
@@ -716,14 +863,13 @@ def plain_sync_probe():
 
 
 def check_against_plain(hist, probe, launches, n_leaves) -> list:
-    """At least 4 syncs, ``n_leaves`` mean_and_sqdev launches per sync and
-    no other kernel, each sync's S_k beside the plain one and the last
-    within rtol 1e-4.  Returns the relative errors."""
+    """At least 4 syncs, one mean_and_sqdev launch per sync covering its
+    ``n_leaves`` leaves and no other kernel, each sync's S_k beside the
+    plain one and the last within rtol 1e-4.  Returns the relative
+    errors."""
     print(f"  s_k_plain={[probe.plain.get(k) for k in hist.sync_steps]}")
     check(hist.n_syncs >= 4, f"only {hist.n_syncs} syncs")
-    check(launches == dict(mean_and_sqdev=n_leaves * hist.n_syncs, sqnorm=0,
-                           quantize=0, dequantize=0, flash_attention=0),
-          f"launches {launches} != {n_leaves} x {hist.n_syncs} mean_sqdev")
+    check_sync_launches(launches, hist.n_syncs, n_leaves)
     rels = [abs(s - probe.plain[k]) / abs(probe.plain[k])
             for k, s in zip(hist.sync_steps, hist.s_k)]
     print(f"  s_k rel err kernel vs plain per sync={rels}")
@@ -733,7 +879,8 @@ def check_against_plain(hist, probe, launches, n_leaves) -> list:
 
 def phase_main_path() -> dict:
     """ADPSGD; each sync's S_k against the plain version on the same
-    pre-sync W."""
+    pre-sync W; then the grouped kernel on the final W
+    (``check_grouped_on_W``)."""
     probe = plain_sync_probe()
     out = drive(MAIN_ARGV, callbacks=[probe])
     hist = out.pop("hist")
@@ -741,7 +888,16 @@ def phase_main_path() -> dict:
     engine = out.pop("engine")
     out["trajectory"] = (hist.sync_steps, hist.losses, hist.s_k)
     out["resume_ref"] = resume_ref(engine, hist)
+    out["grouped"] = grouped_on_final_W(engine, hist, "OLMo-1B W", 31)
     return out
+
+
+def grouped_on_final_W(engine, hist, label: str, seed: int) -> dict:
+    """Free a finished run's optimizer state, then ``check_grouped_on_W``
+    on its W (which the check leaves noised: the run is over)."""
+    engine.opt_state = hist.final_opt = None
+    release()
+    return check_grouped_on_W(engine.W, label, seed)
 
 
 def resume_ref(engine, hist) -> dict:
@@ -755,9 +911,10 @@ def resume_ref(engine, hist) -> dict:
 
 
 def phase_qsgd_periodic() -> dict:
-    """qsgd_periodic: the seeding sync costs 29 mean_and_sqdev launches,
-    each later sync 29 of sqnorm (one per leaf, over its 4 deltas), 29 x 4
-    of quantize and dequantize, and 29 of mean_and_sqdev.  At the last
+    """qsgd_periodic: the seeding sync costs one mean_and_sqdev launch
+    over the 29 leaves, each later sync 29 of sqnorm (one per leaf, over
+    its 4 deltas), 29 x 4 of quantize and dequantize, and 29 of
+    mean_and_sqdev (one leaf each).  At the last
     sync the kernel route's S_k is held against the plain route's on the
     same W, anchor and key (rtol 1e-4: the norms differ by rounding, which
     can flip a level where u is within an ulp of its fraction)."""
@@ -786,8 +943,9 @@ def phase_qsgd_periodic() -> dict:
     engine, hist = out.pop("engine"), out.pop("hist")
     n = hist.n_syncs
     q = N_LEAVES * 4 * (n - 1)
-    want = dict(mean_and_sqdev=N_LEAVES * n, sqnorm=N_LEAVES * (n - 1),
-                quantize=q, dequantize=q, flash_attention=0)
+    want = {"mean_and_sqdev": 1 + N_LEAVES * (n - 1),
+            LEAVES: N_LEAVES * n, "sqnorm": N_LEAVES * (n - 1),
+            "quantize": q, "dequantize": q, "flash_attention": 0}
     check(n >= 4, f"only {n} syncs")
     check(out["launches"] == want, f"launches {out['launches']} != {want}")
     s_k_kernel = hist.s_k[-1]
@@ -850,8 +1008,8 @@ def phase_qsgd() -> dict:
     engine, hist = out.pop("engine"), out.pop("hist")
     steps = len(hist.losses)
     q = steps * 4 * N_LEAVES
-    want = dict(mean_and_sqdev=0, sqnorm=steps * 4, quantize=q,
-                dequantize=q, flash_attention=0)
+    want = {"mean_and_sqdev": 0, LEAVES: 0, "sqnorm": steps * 4,
+            "quantize": q, "dequantize": q, "flash_attention": 0}
     print(f"  max |W_r - W_0| after each step: {probe.max_diff}")
     check(steps == 8 and hist.n_syncs == 8, f"{steps} steps, "
           f"{hist.n_syncs} communication events")
@@ -863,11 +1021,13 @@ def phase_qsgd() -> dict:
 
 
 # ------------------------------------------------------------------ phase 6
-def check_sync_launches(launches: dict, n_syncs: int) -> None:
-    """A periodic path on OLMo-1B: 29 mean_and_sqdev launches per sync
-    (one per leaf), no other kernel."""
-    want = dict(dict.fromkeys(KERNEL_NAMES, 0),
-                mean_and_sqdev=N_LEAVES * n_syncs)
+def check_sync_launches(launches: dict, n_syncs: int,
+                        n_leaves: int = N_LEAVES) -> None:
+    """A periodic path (OLMo-1B unless ``n_leaves`` says otherwise): one
+    mean_and_sqdev launch per sync, covering all of W's leaves; no other
+    kernel."""
+    want = dict(dict.fromkeys(COUNTS, 0), mean_and_sqdev=n_syncs,
+                **{LEAVES: n_leaves * n_syncs})
     check(launches == want, f"launches {launches} != {want}")
 
 
@@ -886,7 +1046,8 @@ def phase_clock(main_path: dict) -> dict:
         by the script's synchronisations): ``n_blocks`` equals the
         programs run on sampled steps, and each closed window's records
         sum to the real time it spans.
-    Each run launches mean_and_sqdev 29 times per sync and nothing else."""
+    Each run launches mean_and_sqdev once per sync over its 29 leaves and
+    nothing else."""
     from repro_torch.backends.ops import all_mean_op
 
     out = drive(MAIN_ARGV + ["--net", "10gbps"])
@@ -988,16 +1149,19 @@ def phase_strategies() -> dict:
 
     hier_adpsgd --inner-period 2 (groups of 2): after every inner sync
     the replicas of each group are bit-identical on the embedding and two
-    more leaves; inner_sync_steps follow the controller's rule; 29
-    mean_and_sqdev launches per outer sync, none for the inner ones.
+    more leaves; inner_sync_steps follow the controller's rule; one
+    mean_and_sqdev launch over the 29 leaves per outer sync, none for the
+    inner ones.
     dasgd --p-const 4 (delay 2): each S_k is recorded at its snapshot
     step, equals a plain recomputation from W taken at the end of that
     step (rtol 1e-4), and its correction is applied exactly 2 steps
-    later; 29 launches per warm-up sync and per snapshot.
+    later; one launch over the 29 leaves per warm-up sync and per
+    snapshot; the snapshot (``mean_delta``) is timed on the final W beside
+    its per-leaf route and its bound.
     adacomm --adacomm-mode time --net 10gbps --adacomm-t0 2.0: the
     schedule on the SimulatedClock; at every block boundary after the
     calibration block the period is the controller's rule, recomputed
-    here from the block's losses; 29 launches per sync."""
+    here from the block's losses; one launch over 29 leaves per sync."""
     import torch
     from repro_torch.kernels.ref import mean_and_sqdev_ref
     from repro_torch.runtime.engine import Callback
@@ -1086,6 +1250,8 @@ def phase_strategies() -> dict:
     results["dasgd"]["s_k_rel"] = rels
     results["dasgd"]["resume_ref"] = dict(resume_ref(engine, hist),
                                           snaps=snaps, applies=applies)
+    results["dasgd"]["snapshot_timing"] = snapshot_timing(engine.backend,
+                                                          engine.W)
     del engine, hist      # hist holds the final W and optimizer state
     release()
 
@@ -1248,17 +1414,18 @@ def cnn_card_vs_cpu(params, batch) -> float:
 
 
 def cnn_launches_expected(name: str, by_program: dict) -> dict:
-    """mean_and_sqdev once per leaf of every all_mean, mean_delta and
-    quantized_all_mean; QSGD's kernels per quantized exchange (sqnorm once
-    per leaf over its replicas, quantize / dequantize per leaf and
-    replica) and per qsgd step (sqnorm once per replica)."""
+    """mean_and_sqdev once over all leaves of every all_mean and
+    mean_delta, once per leaf of every quantized_all_mean; QSGD's kernels
+    per quantized exchange (sqnorm once per leaf over its replicas,
+    quantize / dequantize per leaf and replica) and per qsgd step (sqnorm
+    once per replica)."""
     calls = {p: v["calls"] for p, v in by_program.items()}
-    syncs = sum(calls.get(p, 0) for p in
-                ("all_mean", "mean_delta", "quantized_all_mean"))
+    grouped = calls.get("all_mean", 0) + calls.get("mean_delta", 0)
     q = calls.get("quantized_all_mean", 0)
     s = calls.get("qsgd_step", 0)
-    want = dict.fromkeys(KERNEL_NAMES, 0)
-    want["mean_and_sqdev"] = CNN_LEAVES * syncs
+    want = dict.fromkeys(COUNTS, 0)
+    want["mean_and_sqdev"] = grouped + CNN_LEAVES * q
+    want[LEAVES] = CNN_LEAVES * (grouped + q)
     want["sqnorm"] = CNN_LEAVES * q + CNN_R * s
     want["quantize"] = want["dequantize"] = CNN_LEAVES * CNN_R * (q + s)
     return want
@@ -1308,7 +1475,7 @@ def phase_cnn() -> dict:
     names = available_strategies()
     check(sorted(names) == sorted(recorded["strategies"]),
           "strategies differ from BENCH_engine.json's")
-    table, launches_all, wall = {}, dict.fromkeys(KERNEL_NAMES, 0), {}
+    table, launches_all, wall = {}, dict.fromkeys(COUNTS, 0), {}
     fullsgd_W = {}
     for net in ("10gbps", "100gbps"):
         cols = {}
@@ -1323,7 +1490,7 @@ def phase_cnn() -> dict:
                   f"{name}/{net}: non-finite loss")
             c["launches"] = launches
             cols[name] = c
-            for k in KERNEL_NAMES:
+            for k in COUNTS:
                 launches_all[k] += launches[k]
             if name == "fullsgd" and net == "10gbps":
                 print("  card vs CPU route at FULLSGD's final replica 0, "
@@ -1334,6 +1501,8 @@ def phase_cnn() -> dict:
                 c["step1_loss"] = hist.losses[1]
             if name == "fullsgd":
                 fullsgd_W[net] = tree_leaves(hist.final_W)
+            if name == "adpsgd" and net == "10gbps":
+                adpsgd_W = hist.final_W
             del hist
         full = cols["fullsgd"]["sim_wall_s"]
         for c in cols.values():
@@ -1380,9 +1549,12 @@ def phase_cnn() -> dict:
         del hist
     print("  FULLSGD at lr 0.05 by init seed: (step-1 loss, final loss) "
           + json.dumps(sweep))
+    grouped = check_grouped_on_W(adpsgd_W, "CNN W (adpsgd, 10gbps)", 34)
+    timing = phase_timing(adpsgd_W)
+    del adpsgd_W
     release()
     return {"launches": launches_all, "table": table, "seed_sweep": sweep,
-            "grad_rel": grad_rel,
+            "grad_rel": grad_rel, "grouped": grouped, "timing": timing,
             "host_s": {f"{n}/{net}": v for (n, net), v in wall.items()}}
 
 
@@ -1397,8 +1569,8 @@ def resume_check(label: str, argv, split: int, ref: dict) -> dict:
     remaining steps.  The two
     segments' histories must reassemble ``ref`` (the uninterrupted run of
     an earlier phase) exactly, the final W must equal its W bitwise, and
-    the resumed segment launches mean_and_sqdev 29 times per sync it
-    counts.  Prints the free space at the start, the checkpoint's bytes
+    the resumed segment launches mean_and_sqdev once over the 29 leaves
+    per sync it counts.  Prints the free space at the start, the checkpoint's bytes
     on disk and the save and load seconds; the directory is removed
     afterwards."""
     import os
@@ -1509,7 +1681,7 @@ def phase_resume(main_ref: dict, dasgd_ref: dict) -> dict:
     check(out["dasgd"]["in_flight"], "9b: no correction in flight")
     out["dasgd"]["split"] = split
     out["launches"] = {k: out["adpsgd"]["launches"][k]
-                       + out["dasgd"]["launches"][k] for k in KERNEL_NAMES}
+                       + out["dasgd"]["launches"][k] for k in COUNTS}
     return out
 
 
@@ -1522,7 +1694,7 @@ def phase_dense_serving() -> dict:
     import dataclasses
     from repro_torch.configs import get_config
 
-    out = {"launches": dict.fromkeys(KERNEL_NAMES, 0)}
+    out = {"launches": dict.fromkeys(COUNTS, 0)}
     for arch in DENSE_ARCHS:
         t0 = time.perf_counter()
         cfg = dataclasses.replace(get_config(arch).model,
@@ -1532,7 +1704,7 @@ def phase_dense_serving() -> dict:
                            DENSE_GEN)
         res["wall_s"] = time.perf_counter() - t0
         print(f"  {arch}: {res['wall_s']:.3f} s")
-        for k in KERNEL_NAMES:
+        for k in COUNTS:
             out["launches"][k] += res["launches"][k]
         out[arch] = res
     return out
@@ -1545,12 +1717,14 @@ def phase_deepseek_training() -> dict:
     shared, MLA), R = 4, adamw, batch 4 x 128, 16 steps, through the
     training CLI's setup (``DEEPSEEK_ARGV``).  Each sync's S_k against the
     plain version on the same pre-sync W, the last within rtol 1e-4;
-    exactly 27 mean_and_sqdev launches per sync (one per leaf: the expert
-    leaves (4, 64, 2048, 1408) and (4, 64, 1408, 2048), the router, MLA's
-    projections, the embedding and the head) and no other kernel.  Prints
-    the step and sync times, the peak bytes and the aux losses at the
-    first and last step, then times mean_and_sqdev over one sync of this
-    W (kernel, plain, ``torch.var_mean``) beside its bound."""
+    exactly one mean_and_sqdev launch per sync, covering the 27 leaves
+    (the expert leaves (4, 64, 2048, 1408) and (4, 64, 1408, 2048), the
+    router, MLA's projections, the embedding and the head), and no other
+    kernel.  Prints the step and sync times, the peak bytes and the aux
+    losses at the first and last step, then holds the grouped kernel
+    against the plain version on the final W in its three modes and
+    times one sync of this W four ways beside the fused bound
+    (``phase_timing``)."""
     from repro_torch.launch.train import AuxLog
 
     probe = plain_sync_probe()
@@ -1569,6 +1743,8 @@ def phase_deepseek_training() -> dict:
         math.isfinite(v) and v > 0 for a in steps for v in a.values()),
         "aux losses missing or not positive")
     out["aux"] = {"first": steps[0], "last": steps[-1]}
+    out["grouped"] = grouped_on_final_W(engine, hist, "DeepSeek-V2-Lite W",
+                                        32)
     out["timing"] = phase_timing(engine.W)
     del engine, hist
     release()
@@ -1589,7 +1765,7 @@ def phase_moe_serving() -> dict:
     import dataclasses
     from repro_torch.configs import get_config
 
-    out = {"launches": dict.fromkeys(KERNEL_NAMES, 0)}
+    out = {"launches": dict.fromkeys(COUNTS, 0)}
     for arch, (layers, n_params, n_active) in MOE_SERVE.items():
         t0 = time.perf_counter()
         cfg = dataclasses.replace(get_config(arch).model,
@@ -1607,7 +1783,7 @@ def phase_moe_serving() -> dict:
               f" expected {n_params}, {n_active}")
         res["wall_s"] = time.perf_counter() - t0
         print(f"  {arch}: {res['wall_s']:.3f} s")
-        for k in KERNEL_NAMES:
+        for k in COUNTS:
             out["launches"][k] += res["launches"][k]
         out[arch] = res
     return out
@@ -1641,10 +1817,11 @@ def vlm_audio_training(arch: str, argv, setup=None) -> dict:
     """ADPSGD at full width and depth, R = 4, through the training CLI's
     setup (``argv``; ``setup`` may change the engine before the run).
     Each sync's S_k against the plain version on the same pre-sync W, the
-    last within rtol 1e-4; exactly one mean_and_sqdev launch per leaf per
-    sync and no other kernel; the parameter count.  Then mean_and_sqdev
-    over one sync of this W (kernel, plain, ``torch.var_mean``) beside
-    its bound."""
+    last within rtol 1e-4; exactly one mean_and_sqdev launch per sync,
+    covering every leaf, and no other kernel; the parameter count.  Then
+    the grouped kernel against the plain version on the final W in its
+    three modes, and one sync of this W timed four ways beside the fused
+    bound (``phase_timing``)."""
     n_leaves, n_params = VLM_AUDIO_TRAIN[arch]
     probe = plain_sync_probe()
     out = drive(argv, callbacks=[probe], setup=setup, n_leaves_want=n_leaves)
@@ -1653,6 +1830,7 @@ def vlm_audio_training(arch: str, argv, setup=None) -> dict:
           f"{out['n_params']} params per replica, not {n_params}")
     out["s_k_rel"] = check_against_plain(hist, probe, out["launches"],
                                          n_leaves)
+    out["grouped"] = grouped_on_final_W(engine, hist, f"{arch} W", 33)
     out["timing"] = phase_timing(engine.W)
     del engine, hist
     release()
@@ -1714,7 +1892,7 @@ def phase_vlm_audio_serving() -> dict:
     import dataclasses
     from repro_torch.configs import get_config
 
-    out = {"launches": dict.fromkeys(KERNEL_NAMES, 0)}
+    out = {"launches": dict.fromkeys(COUNTS, 0)}
     for arch, (B, S, _, _, _) in VLM_AUDIO_ARCHS.items():
         t0 = time.perf_counter()
         cfg = dataclasses.replace(get_config(arch).model, max_seq_len=S)
@@ -1730,7 +1908,7 @@ def phase_vlm_audio_serving() -> dict:
               f"{arch}: {res['n_params']} params, expected {n_params}")
         res["wall_s"] = time.perf_counter() - t0
         print(f"  {arch}: {res['wall_s']:.3f} s")
-        for k in KERNEL_NAMES:
+        for k in COUNTS:
             out["launches"][k] += res["launches"][k]
         out[arch] = res
     return out
@@ -1738,33 +1916,93 @@ def phase_vlm_audio_serving() -> dict:
 
 # ------------------------------------------------------------------ phase 4
 def phase_timing(W) -> dict:
-    """mean_and_sqdev: kernel, plain version and torch.var_mean (a
-    yardstick the port never calls) on the largest leaf and on all
-    leaves of one sync."""
+    """mean_and_sqdev on the largest leaf (the one-leaf kernel, its plain
+    version and ``torch.var_mean``) beside its bound, and one sync of all
+    of W's leaves four ways beside the fused bound (``fused_sync_bound``;
+    the kernel's bound in mode mean printed beside it): the grouped kernel
+    (mode sync, the paths' route); the route before it (the one-leaf
+    kernel per leaf, ``copy_`` of its mean into every replica, the Python
+    sum of the sq); the library route (``torch.var_mean`` per leaf, then
+    ``copy_`` of its mean: a yardstick the port never calls); the plain
+    route (``mean_and_sqdev_many_ref``).  Each sync writes W in place."""
     import torch
-    from repro_torch.kernels.param_variance import mean_and_sqdev
-    from repro_torch.kernels.ref import mean_and_sqdev_ref
+    from repro_torch.kernels import param_variance as pv
+    from repro_torch.kernels.ref import (mean_and_sqdev_many_ref,
+                                         mean_and_sqdev_ref)
     from repro_torch.tree import tree_leaves
 
     leaves = tree_leaves(W)
+    R = leaves[0].shape[0]
     embed = max(leaves, key=lambda x: x.numel())
-    out = {}
-    for label, group, iters in (("embed", [embed], 20),
-                                ("sync", leaves, 10)):
-        def over(fn, group=group):
-            return lambda: [fn(x) for x in group]
-        row = {
-            "ms": cuda_ms(over(mean_and_sqdev), iters),
-            "plain_ms": cuda_ms(over(mean_and_sqdev_ref), iters),
-            "library_ms": cuda_ms(over(lambda x: torch.var_mean(
-                x, dim=0, correction=0)), iters),
-        }
-        row["bound_ms"], row["bound_by"] = mean_sqdev_bound(
-            [tuple(x.shape) for x in group])
-        out[label] = row
-        print(f"  timing mean_and_sqdev {label} ({len(group)} leaves): "
-              + " ".join(f"{k}={v}" for k, v in row.items()))
+    row = {"ms": cuda_ms(lambda: pv.mean_and_sqdev(embed), 20),
+           "plain_ms": cuda_ms(lambda: mean_and_sqdev_ref(embed), 20),
+           "library_ms": cuda_ms(lambda: torch.var_mean(
+               embed, dim=0, correction=0), 20)}
+    row["bound_ms"], row["bound_by"] = mean_sqdev_bound([tuple(embed.shape)])
+    out = {"embed": row}
+    print(f"  timing mean_and_sqdev embed {tuple(embed.shape)}: "
+          + " ".join(f"{k}={v}" for k, v in row.items()))
+
+    def old_route():
+        sks = []
+        for x in leaves:
+            mean, sk = pv.mean_and_sqdev(x)
+            x.copy_(mean.unsqueeze(0).expand_as(x))
+            sks.append(sk)
+        return sum(sks) / R
+
+    def library_route():
+        for x in leaves:
+            _, mean = torch.var_mean(x, dim=0, correction=0)
+            x.copy_(mean.unsqueeze(0).expand_as(x))
+
+    shapes = [tuple(x.shape) for x in leaves]
+    row = {"ms": cuda_ms(lambda: pv.mean_and_sqdev_many(leaves, "sync"), 10),
+           "old_ms": cuda_ms(old_route, 10),
+           "library_ms": cuda_ms(library_route, 10),
+           "plain_ms": cuda_ms(lambda: mean_and_sqdev_many_ref(leaves,
+                                                               "sync"), 10)}
+    row["bound_ms"], row["bound_by"] = fused_sync_bound(shapes)
+    row["mean_bound_ms"] = mean_sqdev_bound(shapes)[0]
+    row["n_leaves"] = len(leaves)
+    out["sync"] = row
+    print(f"  timing sync ({len(leaves)} leaves, R={R}): grouped "
+          f"{row['ms']!r} ms, old route {row['old_ms']!r}, var_mean + copy_ "
+          f"{row['library_ms']!r}, plain {row['plain_ms']!r}; fused bound "
+          f"{row['bound_ms']!r} ({row['bound_by']}; {row['bound_ms'] / row['ms']:.1%}"
+          f" of it reached), the kernel's bound in mode mean "
+          f"{row['mean_bound_ms']!r}")
     return out
+
+
+def snapshot_timing(backend, W) -> dict:
+    """DaSGD's snapshot (``mean_delta``) on W: the grouped kernel in mode
+    delta (the path's route) and the route before it (the one-leaf kernel
+    per leaf, then ``mean − w`` per leaf, the Python sum), beside the
+    fused bound."""
+    from repro_torch.kernels import param_variance as pv
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(W)
+    R = leaves[0].shape[0]
+    snapshot = backend.mean_delta()
+
+    def old_route():
+        deltas, sks = [], []
+        for x in leaves:
+            mean, sk = pv.mean_and_sqdev(x)
+            deltas.append(mean.unsqueeze(0) - x)
+            sks.append(sk)
+        return deltas, sum(sks) / R
+
+    row = {"ms": cuda_ms(lambda: snapshot(W), 10),
+           "old_ms": cuda_ms(old_route, 10)}
+    row["bound_ms"], row["bound_by"] = fused_sync_bound(
+        [tuple(x.shape) for x in leaves])
+    print(f"  timing dasgd snapshot ({len(leaves)} leaves): grouped "
+          f"{row['ms']!r} ms, old route {row['old_ms']!r}; fused bound "
+          f"{row['bound_ms']!r} ({row['bound_by']})")
+    return row
 
 
 def phase_qsgd_timing(W) -> dict:
@@ -2071,7 +2309,7 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int, inputs=None) -> dict:
     agree = {"flash_plain": int((top[0] == top[1]).sum()),
              "flash_f32": int((top[0] == top[2]).sum()),
              "plain_f32": int((top[1] == top[2]).sum())}
-    none = dict.fromkeys(KERNEL_NAMES, 0)
+    none = dict.fromkeys(COUNTS, 0)
     print(f"  (a) prefill {B}x{S}{extra.get('what', '')}: flash "
           f"{ms_flash:.3f} ms "
           f"launches={l_flash}; plain {ms_plain:.3f} ms launches={l_plain}; "
@@ -2149,7 +2387,7 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int, inputs=None) -> dict:
     del params, extra, batch, decode_extra, prompt_batch
     release()
     return {"launches": {k: l_flash[k] + l_plain[k] + l_gen[k]
-                         for k in KERNEL_NAMES},
+                         for k in COUNTS},
             "n_params": n_params, "n_active": n_active, "init_s": init_s,
             "reserved_after_init": reserved, "n_layers": cfg.n_layers,
             "prefill_ms": {"flash": ms_flash, "plain": ms_plain,
@@ -2211,6 +2449,7 @@ def main() -> int:
 
     print("phase 2: kernels against their plain versions")
     errs = phase_kernels(device)
+    gerrs = phase_grouped_kernels(device)
     qerrs = phase_qsgd_kernels(device)
     ferrs = phase_flash_kernels(device)
     done("2")
@@ -2292,7 +2531,7 @@ def main() -> int:
                  qwen_vl_training=qwen_vl, whisper_training=whisper,
                  vlm_audio_serving=vlm_audio_serving)
     launches = {k: sum(p["launches"][k] for p in paths.values())
-                for k in KERNEL_NAMES}
+                for k in COUNTS}
     print("launches by path: " + json.dumps(
         {name: p["launches"] for name, p in paths.items()}))
     sync = timing["sync"]
@@ -2300,7 +2539,7 @@ def main() -> int:
         "name": "mean_and_sqdev", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mean_sqdev.cu",
         "replaces": "src/repro/kernels/param_variance.py:47",
-        "launches": launches["mean_and_sqdev"],
+        "launches": launches["mean_and_sqdev"], "leaves": launches[LEAVES],
         "max_abs_err": errs["max_abs_err"],
         "ms": sync["ms"], "plain_ms": sync["plain_ms"],
         "bound_ms": sync["bound_ms"], "bound_by": sync["bound_by"],
@@ -2329,6 +2568,17 @@ def main() -> int:
     print("summary: " + json.dumps({
         name: {k: p[k] for k in ("ms", "peak_bytes", "n_syncs")}
         for name, p in training.items()}))
+    print("summary: mean_and_sqdev sync timing " + json.dumps(
+        {"olmo": timing["sync"], "cnn": cnn["timing"]["sync"],
+         "deepseek": deepseek["timing"]["sync"],
+         "qwen2-vl-2b": qwen_vl["timing"]["sync"],
+         "whisper-medium": whisper["timing"]["sync"],
+         "dasgd_snapshot": strategies["dasgd"]["snapshot_timing"]}))
+    print("summary: grouped mean_and_sqdev checks " + json.dumps(
+        {"phase 2": gerrs, "olmo": main_path["grouped"],
+         "cnn": cnn["grouped"], "deepseek": deepseek["grouped"],
+         "qwen2-vl-2b": qwen_vl["grouped"],
+         "whisper-medium": whisper["grouped"]}))
     print(f"summary: mean_and_sqdev embed={timing['embed']} "
           f"uniform_ms_per_exchange={qtiming['uniform_ms']} "
           f"qsgd_periodic last-sync s_k_rel={qp['s_k_rel']} "

@@ -57,25 +57,26 @@ class VmapBackend(ExecutionBackend):
         return avg.sync_opt_state
 
     def _lower_mean_delta(self, op):
-        """DaSGD's snapshot: per leaf the replica mean and Σ_i ||mean −
-        w_i||² (the fused kernel when it is on, as in ``all_mean``), then
-        ``delta = mean − w_i`` in a second pass into an f32 buffer.  W is
-        only read; the work is queued on W's stream, so it sees W before
-        the next step writes it.  Returns (delta tree, S_k), S_k left on
-        the device."""
+        """DaSGD's snapshot: ``delta = mean − w_i`` per leaf into one f32
+        buffer of W's size, and S_k.  With the kernel on, one pass over all
+        leaves (the fused kernel's delta mode) whose per-leaf views are the
+        delta tree; without, the plain mean and sqdev per leaf, then the
+        delta.  W is only read; the work is queued on W's stream, so it
+        sees W before the next step writes it.  Returns (delta tree, S_k),
+        S_k left on the device."""
 
         @torch.no_grad()
         def mean_delta(W):
-            kernel = self.kernel_on(W)
             leaves = tree_leaves(W)
+            if self.kernel_on(W):
+                out, deltas = kops.param_mean_and_sqdev_out(leaves, "delta")
+                _, s_k = kops.param_mean_and_sqdev_many(leaves, "delta", out)
+                return tree_unflatten(W, deltas), s_k
             R = leaves[0].shape[0]
             deltas, sks = [], []
             for x in leaves:
                 xf = x.to(torch.float32)
-                if kernel:
-                    mean, sk = kops.param_mean_and_sqdev(xf)
-                else:
-                    mean, sk = kref.mean_and_sqdev_ref(xf)
+                mean, sk = kref.mean_and_sqdev_ref(xf)
                 deltas.append(mean.unsqueeze(0) - xf)
                 sks.append(sk)
             return tree_unflatten(W, deltas), sum(sks) / R

@@ -120,17 +120,13 @@ def sync_replicas(W: Pytree, opt_state: Optional[Pytree] = None, *,
     The mean is written back into every replica of the stacked buffers in
     place, which saves the parameter-sized copy the reference's broadcast
     makes; W_synced is W.  ``use_kernel`` runs the fused mean + sqdev
-    kernel once per leaf, as the reference does."""
+    kernel once over all leaves in its sync mode, which writes the mean
+    back itself (the reference runs its kernel once per leaf)."""
     leaves = tree_leaves(W)
     R = leaves[0].shape[0]
     if use_kernel:
         from repro_torch.kernels import ops as kops
-        sks = []
-        for x in leaves:
-            mean, sk = kops.param_mean_and_sqdev(x)
-            x.copy_(mean.unsqueeze(0).expand_as(x))
-            sks.append(sk)
-        S_k = sum(sks) / R
+        _, S_k = kops.param_mean_and_sqdev_many(leaves, "sync")
     else:
         S_k = 0
         for x in leaves:

@@ -48,6 +48,26 @@ def mean_and_sqdev_ref(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return mean.reshape(w.shape[1:]), sq
 
 
+def mean_and_sqdev_many_ref(leaves: Sequence[torch.Tensor], mode: str,
+                            out: Optional[Sequence[torch.Tensor]] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``mean_and_sqdev_ref`` per leaf, then the mode's write: "mean" the
+    mean into ``out[l]``, "sync" the mean into every replica of the leaf,
+    "delta" ``mean − w`` into ``out[l]`` (the leaf's shape).  Returns
+    (each leaf's sq stacked, Σ_l sq_l / R summed in leaf order)."""
+    sks = []
+    for i, x in enumerate(leaves):
+        mean, sk = mean_and_sqdev_ref(x)
+        if mode == "sync":
+            x.copy_(mean.unsqueeze(0).expand_as(x))
+        elif mode == "mean":
+            out[i].copy_(mean)
+        else:
+            torch.sub(mean.unsqueeze(0), x, out=out[i])
+        sks.append(sk)
+    return torch.stack(sks), sum(sks) / leaves[0].shape[0]
+
+
 def qsgd_scale(bits: int) -> int:
     """s = 2^(bits−1) − 1, the largest QSGD level."""
     if not 2 <= bits <= 8:

@@ -10,7 +10,8 @@ Imports neither jax nor the reference, so it runs where the port runs:
 
 Without a CUDA device every case skips (the kernels have no CPU mode).
 Tolerances: mean atol 1e-6, sq and sqnorm rtol 1e-5 (f32 sums in another
-order); levels and dequantized values bit-identical given the same norm
+order); the grouped mean_and_sqdev's means and deltas bitwise (the replicas
+summed in index order, as the plain version does); levels and dequantized values bit-identical given the same norm
 and uniforms; a tensor's sqnorm in a group bit-identical to its sqnorm
 alone; flash attention atol = rtol = 2e-5 in f32 and 2e-2 in bf16, the
 tolerances of the reference's kernel test (online against exact softmax;
@@ -110,16 +111,115 @@ def test_kernel_rejects_strided_input(cuda):
 
 @pytest.mark.cuda
 def test_sync_uses_kernel_on_cuda(cuda):
+    """One launch of the grouped kernel covers both leaves."""
     from repro_torch.backends import VmapBackend
     W = {"a": torch.randn(4, 300, device=cuda), "n": {},
          "b": [torch.randn(4, 7, 5, device=cuda)]}
     want = float(sum(torch_ref.mean_and_sqdev_ref(x)[1]
                      for x in (W["a"], W["b"][0])) / 4)
-    before = mean_and_sqdev.launches
+    before = (mean_and_sqdev.launches, mean_and_sqdev.leaves)
     W, _, s_k = VmapBackend(device=cuda).all_mean()(W, None)
-    assert mean_and_sqdev.launches == before + 2
+    assert (mean_and_sqdev.launches, mean_and_sqdev.leaves) == \
+        (before[0] + 1, before[1] + 2)
     assert abs(float(s_k) - want) <= 1e-5 * want
     assert torch.equal(W["a"], W["a"][:1].expand_as(W["a"]))
+
+
+def _tree_on(cuda, shapes, R, seed):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    return [torch.randn((R, *s), generator=gen, device=cuda) for s in shapes]
+
+
+def _check_many(cuda, shapes, R, mode, seed):
+    """The grouped kernel in ``mode`` against the plain per-leaf route:
+    means (every row after the sync) and deltas bitwise; W unchanged by
+    mean and delta; each leaf's sq within rtol 1e-5 (1e-4 past 1e8
+    elements a replica), S_k within 1e-5; a bitwise repeat; one launch."""
+    from repro_torch.kernels import param_variance as pv
+    base = _tree_on(cuda, shapes, R, seed)
+    want_sq, want_s_k = torch_ref.mean_and_sqdev_many_ref(
+        [x.clone() for x in base], "sync")
+    means = [torch_ref.mean_and_sqdev_ref(x)[0] for x in base]
+    # the sync writes its leaves; mean and delta only read theirs
+    keep = [x.clone() for x in base]
+    runs = []
+    for _ in range(2):
+        leaves = [x.clone() for x in keep] if mode == "sync" else base
+        out = None if mode == "sync" else pv.new_out(leaves, mode)
+        before = (mean_and_sqdev.launches, mean_and_sqdev.leaves)
+        sq, s_k = pv.mean_and_sqdev_many(leaves, mode, out)
+        assert (mean_and_sqdev.launches, mean_and_sqdev.leaves) == \
+            (before[0] + 1, before[1] + len(leaves))
+        runs.append((leaves, out, sq, s_k))
+    torch.cuda.synchronize()
+    (leaves, out, sq, s_k), (leaves2, out2, sq2, s_k2) = runs
+    assert torch.equal(sq, sq2) and torch.equal(s_k, s_k2)
+    assert all(torch.equal(a, b) for a, b in zip(leaves, leaves2))
+    views = None if out is None else pv.out_views(out, leaves, mode)
+    if out is not None:        # the views: out's 16-byte padding is not written
+        assert all(torch.equal(a, b) for a, b in
+                   zip(views, pv.out_views(out2, leaves, mode)))
+    del runs, leaves2, out2
+    for i, (x, k, m) in enumerate(zip(leaves, keep, means)):
+        if mode == "sync":
+            assert torch.equal(x, m.unsqueeze(0).expand_as(x))
+            continue
+        assert torch.equal(x, k)
+        assert torch.equal(views[i], m if mode == "mean"
+                           else m.unsqueeze(0) - k)
+    tol = torch.tensor([1e-4 if np.prod(s) > 1e8 else 1e-5 for s in shapes],
+                       device=cuda)
+    assert bool(((sq - want_sq).abs() <= tol * want_sq).all())
+    torch.testing.assert_close(s_k, want_s_k, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mean", "sync", "delta"])
+@pytest.mark.parametrize("R,shape", CASES)
+def test_grouped_kernel_at_each_case(cuda, R, shape, mode):
+    _check_many(cuda, [shape], R, mode, seed=R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mean", "sync", "delta"])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 8, 16])
+def test_grouped_kernel_on_a_tree_of_the_cases(cuda, R, mode):
+    """Every R the kernel specialises and two it does not, over one tree of
+    the case shapes and a few ragged and 1-element leaves."""
+    shapes = [s for _, s in CASES[:4]] + [(), (7,), (2048 * 3 + 5,), (1,)]
+    _check_many(cuda, shapes, R, mode, seed=10 + R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mean", "sync", "delta"])
+@pytest.mark.parametrize("family", ["deepseek", "vlm_audio"])
+def test_grouped_kernel_at_the_families_leaf_shapes(cuda, family, mode):
+    """R = 4 over DeepSeek-V2-Lite's leaf shapes, then Qwen2-VL-2B's and
+    Whisper-medium's, each list as one tree."""
+    shapes = {"deepseek": DEEPSEEK_LEAF_SHAPES,
+              "vlm_audio": VLM_AUDIO_LEAF_SHAPES}[family]
+    _check_many(cuda, shapes, 4, mode, seed=len(shapes))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_grouped_table_is_cached_per_tree(cuda):
+    """The device table of a tree is built once and reused while its
+    buffers stay; fresh buffers of the same shapes get their own."""
+    from repro_torch.kernels import param_variance as pv
+    W = _tree_on(cuda, [(300,), (7, 5)], 4, 5)
+    _, s1 = pv.mean_and_sqdev_many(W, "sync")
+    entry = pv._device_table(W)
+    _, s2 = pv.mean_and_sqdev_many(W, "sync")
+    assert pv._device_table(W) is entry
+    assert float(s2) < 1e-10 < float(s1)     # the first sync averaged W
+    fresh = [x.clone() + torch.arange(4, device=cuda).view(4, *[1] * (x.dim() - 1))
+             for x in W]
+    _, s3 = pv.mean_and_sqdev_many(fresh, "sync")
+    assert pv._device_table(fresh) is not entry
+    assert torch.equal(fresh[0], fresh[0][:1].expand_as(fresh[0]))
+    assert abs(float(s3) - (300 + 35) * 5 / 4) <= 1e-4 * float(s3)
 
 
 QSGD_CASES = [(7,), (1000,), (1024,), (4097,), (33, 17), (2048, 2048)]
@@ -203,23 +303,24 @@ def test_quantized_sync_uses_kernels_on_cuda(cuda):
 
 @pytest.mark.cuda
 def test_mean_delta_uses_kernel_and_stream_order_on_cuda(cuda):
-    """DaSGD's snapshot: one mean_and_sqdev launch per leaf; the delta is
-    mean − w_i; the work is queued on W's stream, so an in-place write to
-    W right after the dispatch (the next local step) does not reach the
-    fetched delta; apply_delta adds it in place; S_k as the plain
-    version's (rtol 1e-5)."""
+    """DaSGD's snapshot: one mean_and_sqdev launch over both leaves; the
+    delta is mean − w_i; the work is queued on W's stream, so an in-place
+    write to W right after the dispatch (the next local step) does not
+    reach the fetched delta; apply_delta adds it in place; S_k as the
+    plain version's (rtol 1e-5)."""
     from repro_torch.backends import VmapBackend
     g = torch.Generator().manual_seed(3)
     W = {"a": torch.randn(4, 300, generator=g).to(cuda), "n": {},
          "b": [torch.randn(4, 7, 5, generator=g).to(cuda)]}
     old = {"a": W["a"].clone(), "b": W["b"][0].clone()}
     backend = VmapBackend(device=cuda)
-    before = mean_and_sqdev.launches
+    before = (mean_and_sqdev.launches, mean_and_sqdev.leaves)
     inflight = backend.mean_delta(overlap=True)(W)
     W["a"].add_(100.0)                        # the next step, in place
     W["b"][0].mul_(-3.0)
     delta, s_k = inflight.fetch()
-    assert mean_and_sqdev.launches == before + 2
+    assert (mean_and_sqdev.launches, mean_and_sqdev.leaves) == \
+        (before[0] + 1, before[1] + 2)
     want = float(sum(torch_ref.mean_and_sqdev_ref(x)[1]
                      for x in old.values()) / 4)
     assert abs(float(s_k) - want) <= 1e-5 * want
