@@ -45,8 +45,15 @@ Whisper-medium (adamw, 1500 seeded frames a sample) at full width and
 depth with ADPSGD at R = 4, and serves both whole (Qwen2-VL's prefill
 with a 64-patch vision prefix, Whisper's over 1500 frames, both through
 flash; Whisper's encoder and cross attention bypass it, as in the
-reference).  Each path is driven with the launch counts set to 0 just
-before it and read just after.
+reference).  Phase 14 trains xLSTM-350M at full width and depth (R = 4,
+adamw) and Jamba-1.5-Large at full width cut to its first layer (Mamba
+and a dense MLP, R = 2) with ADPSGD, and serves xLSTM-350M whole and
+Jamba cut to layers 0-4 (four Mamba layers, two of them with 16 experts,
+and the attention layer, through flash) with bf16 parameters; the
+recurrent mixers (the selective scan, the mLSTM's chunks, the sLSTM's
+steps) run as plain PyTorch, in the reference as here.  Each path is
+driven with the launch counts set to 0 just before it and read just
+after.
 
 Phases: 1 environment and build (no kernel may spill registers; TF32
 off, deterministic cuDNN); 2 kernels against their plain versions (the
@@ -56,7 +63,8 @@ W, and time one sync of it four ways); 3, 3b, 3c the training paths; 4
 kernel timings; 5 serving; 6 the clock; 7 the last three strategies; 8
 the CNN experiment; 9 checkpoint / resume; 10 the dense configs served;
 11 the MoE family trained; 12 the MoE family served; 13a-c the
-vision-language and audio models trained and served.  Each phase prints
+vision-language and audio models trained and served; 14a-c the Mamba
+hybrid and xLSTM families trained and served.  Each phase prints
 its seconds.  Any failed check exits non-zero.
 The card's ``nvidia-smi`` name and power limit stand on the line before
 the ``{"kernels": [...]}`` line, and the last line is
@@ -128,11 +136,20 @@ VLM_AUDIO_LEAF_SHAPES = [(151936, 1536), (1536, 1536), (1536, 256),
                          (1536, 8960), (8960, 1536), (256,), (1536,),
                          (51865, 1024), (1024, 1024), (1024, 4096),
                          (4096, 1024), (4096,), (1024,)]
+# each distinct leaf shape of phase 14's xLSTM-350M (R = 4) that the paths
+# above have not (the mLSTM's gate biases, norm, conv, projections and
+# gates; the sLSTM's recurrence and feed-forward), then Jamba's Mamba
+# block's (A_log, conv, dt_proj, x_proj, D; R = 2), each at R = 2 and 4
+SSM_LEAF_SHAPES = [(4,), (2048,), (4, 2048), (2048, 2048), (4, 256, 1024),
+                   (1024, 1344), (1344, 1024), (2048, 8), (2048, 1024),
+                   (16384, 16), (4, 16384), (512, 16384), (16384, 544),
+                   (16384,)]
 KERNEL_CASES = ([(2, (100,)), (8, (33, 7)), (16, (1024,)), (4, (5, 4, 3))]
                 + [(4, s) for s in LEAF_SHAPES]
                 + [(CNN_R, s) for s in CNN_LEAF_SHAPES]
                 + [(4, s) for s in DEEPSEEK_LEAF_SHAPES]
-                + [(4, s) for s in VLM_AUDIO_LEAF_SHAPES])
+                + [(4, s) for s in VLM_AUDIO_LEAF_SHAPES]
+                + [(R, s) for R in (2, 4) for s in SSM_LEAF_SHAPES])
 # (shape, bits): the reference's QSGD kernel-test cases, then the leaves
 QSGD_CASES = ([((n,), b) for n in (7, 1000, 1024, 4097) for b in (4, 8)]
               + [((33, 17), 8)]
@@ -198,6 +215,34 @@ VLM_AUDIO_TRAIN = {"qwen2-vl-2b": (338, 1_543_714_304),
 VLM_AUDIO_ARCHS = {"qwen2-vl-2b": (1, 2048, 12, 2, 128),
                    "whisper-medium": (4, 512, 16, 16, 64)}
 VLM_AUDIO_PROMPT, VLM_AUDIO_GEN = 128, 32
+# phase 14a: xLSTM-350M at full width and depth (21 mLSTM + 3 sLSTM), R =
+# 4, adamw, DEEPSEEK_ARGV's other flags; 14b: Jamba-1.5-Large at full
+# width cut to layer 0 (Mamba + dense SwiGLU MLP), R = 2 (each MoE layer
+# alone is 9.66 B parameters, 38.7 GB in f32: none trains at R >= 2 on one
+# card; layer 0 at R = 4 with adamw needs about 109 GB)
+XLSTM_ARGV = ["--arch", "xlstm-350m", "--backend", "vmap", "--no-reduced",
+              "--replicas", "4", "--batch", "4", "--seq", "128",
+              "--warmup-sync", "2", "--p-init", "2", "--lr", "4e-4",
+              "--seed", "0", "--method", "adpsgd", "--steps", "16"]
+JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--backend", "vmap",
+              "--no-reduced", "--layers", "1", "--replicas", "2",
+              "--batch", "4", "--seq", "128", "--warmup-sync", "2",
+              "--p-init", "2", "--lr", "4e-4", "--seed", "0",
+              "--method", "adpsgd", "--steps", "16"]
+# (leaves, params) per replica, the reference's jax.eval_shape
+SSM_TRAIN = {"xlstm-350m": (303, 476_656_808),
+             "jamba-1.5-large-398b": (17, 2_098_077_696)}
+# phase 14c: xLSTM-350M whole (f32 parameters); Jamba-1.5-Large at full
+# width cut to layers 0-4 of 72 (four Mamba, attention at index 4, MoE on
+# layers 1 and 3) with bf16 parameters (48.09 GB; the same five layers are
+# 96.2 GB in f32, and the largest f32 prefix that fits, 3 layers, has no
+# attention layer); each (layers, param dtype, params); 1 x 2048 prefill,
+# generate 1 x (128 + 32)
+SSM_SERVE = {"xlstm-350m": (0, "float32", 476_656_808),
+             "jamba-1.5-large-398b": (5, "bfloat16", 24_045_707_264)}
+# Jamba's prefill attention layer (B, S, H, K, d): GQA 64 / 8, no
+# positions, no window
+JAMBA_PREFILL = (1, 2048, 64, 8, 128)
 
 
 class CheckFailed(Exception):
@@ -672,8 +717,8 @@ def phase_flash_kernels(device, ulp_check: bool = True) -> dict:
     shapes x f32/bf16 x window 0/64, causal, and the block-size case) at
     its tolerances, atol = rtol = 2e-5 in f32 and 2e-2 in bf16 (online
     against exact softmax; one bf16 rounding of the output); the prefill
-    layers of phase 10's three dense configs and of phase 13's Qwen2-VL
-    and Whisper decoder, the OLMo-1B prefill layer,
+    layers of phase 10's three dense configs, of phase 13's Qwen2-VL and
+    Whisper decoder and of phase 14's Jamba, the OLMo-1B prefill layer,
     GLM4-9B's GQA heads and causal=False in bf16.  Every call is run twice
     for a bitwise repeat, adds 1 to the launch count each time, and a
     length the reference refuses raises.  On the wgmma instance (bf16, d
@@ -694,7 +739,8 @@ def phase_flash_kernels(device, ulp_check: bool = True) -> dict:
                {"block_q": bq, "block_k": bk})
               for bq, bk in ((64, 64), (128, 64), (64, 128))]
     cases += [(shape, bf16, True, 0, {}) for shape in
-              list(DENSE_ARCHS.values()) + list(VLM_AUDIO_ARCHS.values())]
+              list(DENSE_ARCHS.values()) + list(VLM_AUDIO_ARCHS.values())
+              + [JAMBA_PREFILL]]
     cases += [(OLMO_PREFILL, bf16, True, 0, {}), (GLM4_GQA, bf16, True, 0, {}),
               ((2, 256, 4, 2, 32), f32, False, 0, {}),
               ((2, 256, 4, 2, 32), bf16, False, 0, {}),
@@ -1813,16 +1859,17 @@ def add_frames(engine) -> None:
     engine.data_fn = data_fn
 
 
-def vlm_audio_training(arch: str, argv, setup=None) -> dict:
-    """ADPSGD at full width and depth, R = 4, through the training CLI's
-    setup (``argv``; ``setup`` may change the engine before the run).
-    Each sync's S_k against the plain version on the same pre-sync W, the
-    last within rtol 1e-4; exactly one mean_and_sqdev launch per sync,
-    covering every leaf, and no other kernel; the parameter count.  Then
-    the grouped kernel against the plain version on the final W in its
-    three modes, and one sync of this W timed four ways beside the fused
-    bound (``phase_timing``)."""
-    n_leaves, n_params = VLM_AUDIO_TRAIN[arch]
+def model_training(arch: str, argv, setup=None) -> dict:
+    """ADPSGD through the training CLI's setup (``argv``: phase 13's at
+    full width and depth, R = 4; phase 14's xLSTM whole at R = 4, Jamba
+    cut to one layer at R = 2; ``setup`` may change the engine before the
+    run).  Each sync's S_k against the plain version on the same pre-sync
+    W, the last within rtol 1e-4; exactly one mean_and_sqdev launch per
+    sync, covering every leaf, and no other kernel; the parameter count.
+    Then the grouped kernel against the plain version on the final W in
+    its three modes, and one sync of this W timed four ways beside the
+    fused bound (``phase_timing``)."""
+    n_leaves, n_params = {**VLM_AUDIO_TRAIN, **SSM_TRAIN}[arch]
     probe = plain_sync_probe()
     out = drive(argv, callbacks=[probe], setup=setup, n_leaves_want=n_leaves)
     engine, hist = out.pop("engine"), out.pop("hist")
@@ -1904,6 +1951,49 @@ def phase_vlm_audio_serving() -> dict:
         res = serve_checks(cfg, B, text, VLM_AUDIO_PROMPT, VLM_AUDIO_GEN,
                            inputs=inputs)
         n_params = VLM_AUDIO_TRAIN[arch][1]
+        check(res["n_params"] == n_params,
+              f"{arch}: {res['n_params']} params, expected {n_params}")
+        res["wall_s"] = time.perf_counter() - t0
+        print(f"  {arch}: {res['wall_s']:.3f} s")
+        for k in COUNTS:
+            out["launches"][k] += res["launches"][k]
+        out[arch] = res
+    return out
+
+
+# ----------------------------------------------------------------- phase 14
+def phase_ssm_serving() -> dict:
+    """xLSTM-350M at full width and depth (no cut: 21 mLSTM and 3 sLSTM
+    layers, f32 parameters) and Jamba-1.5-Large at full width cut to
+    layers 0-4 of 72 with bf16 parameters (``SSM_SERVE``), one after
+    another (memory released between), through ``serve_checks``: a 1 x
+    2048 prefill (xLSTM: 8 mLSTM chunks and 2048 sLSTM steps in each
+    sLSTM layer, no flash launch; Jamba: one flash launch, at its
+    attention layer (1, 2048, 64, 8, 128)) and generate 1 x (128 + 32),
+    decoding against the recurrent states (and Jamba's one KV cache),
+    each decode held to its prefill in bf16 and in f32.  Checks the
+    parameter counts; Jamba's A_log and D stay f32 in bf16, as in the
+    reference's init."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    out = {"launches": dict.fromkeys(COUNTS, 0)}
+    for arch, (layers, dtype, n_params) in SSM_SERVE.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch).model,
+                                  max_seq_len=DENSE_SEQ, param_dtype=dtype)
+        if layers:
+            print(f"  {arch}: full width, cut to {layers} of "
+                  f"{cfg.n_layers} layers, {dtype} parameters")
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        else:
+            print(f"  {arch}: full width and depth (no cut), {dtype} "
+                  f"parameters")
+        layer_ids = range(cfg.n_layers)
+        print(f"  {arch}: layers {[cfg.block_kind(i) for i in layer_ids]}, "
+              f"MoE on {[i for i in layer_ids if cfg.layer_uses_moe(i)]}")
+        res = serve_checks(cfg, DENSE_BATCH, DENSE_SEQ, DENSE_PROMPT,
+                           DENSE_GEN)
         check(res["n_params"] == n_params,
               f"{arch}: {res['n_params']} params, expected {n_params}")
         res["wall_s"] = time.perf_counter() - t0
@@ -2154,7 +2244,7 @@ def phase_qsgd_timing(W) -> dict:
 
 def phase_flash_timing() -> dict:
     """flash attention at the OLMo-1B prefill layer and at each of the
-    prefill layers of phases 10 and 13, bf16, causal: the kernel, its
+    prefill layers of phases 10, 13 and 14, bf16, causal: the kernel, its
     plain version and torch's scaled_dot_product_attention
     (is_causal=True, enable_gqa where K < H; a yardstick the port never
     calls) by CUDA events; and
@@ -2172,7 +2262,9 @@ def phase_flash_timing() -> dict:
     out = {}
     layers = [("olmo_prefill", OLMO_PREFILL, 20)]
     layers += [(f"{arch}_prefill", shape, 20)
-               for arch, shape in {**DENSE_ARCHS, **VLM_AUDIO_ARCHS}.items()]
+               for arch, shape in {**DENSE_ARCHS, **VLM_AUDIO_ARCHS,
+                                   "jamba-1.5-large-398b": JAMBA_PREFILL}
+               .items()]
     for label, shape, iters in layers + [("prefill_32k", PREFILL_32K, 3)]:
         q, k, v = qkv(shape, torch.bfloat16, gen, DEVICE)
         B, S, H, K, d = shape
@@ -2213,10 +2305,74 @@ def phase_serving() -> dict:
 
 def flash_layers(cfg) -> int:
     """The layers whose prefill reaches flash attention when use_flash is
-    set: GQA attention without a sliding window, the reference's rule
-    (``repro/models/layers.py:235``); MLA never does."""
-    return (cfg.n_layers if cfg.attention_type != "mla"
-            and cfg.sliding_window == 0 else 0)
+    set: GQA attention layers without a sliding window, the reference's
+    rule (``repro/models/layers.py:235``); MLA never does, nor a Mamba,
+    mLSTM or sLSTM layer."""
+    if cfg.attention_type == "mla" or cfg.sliding_window:
+        return 0
+    return sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
+class replay_routing:
+    """Within ``with``, wraps ``moe_route``.  Each call's top-k experts
+    (T, k) are kept, and ``take()`` returns and clears them; after
+    ``replay(decode_calls, P)``, the prefill of the same B x P tokens that
+    follows (one call per MoE layer) routes each token to the experts its
+    decode step chose (P steps, one call per MoE layer each), each
+    weighted by the prefill's own router probability there, renormalised
+    as ``moe_route`` does; ``taken()`` then gives, per MoE layer, the
+    tokens whose own top-k differ from those, and the (token, expert)
+    slots dropped at capacity."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self._layers, self._route = L, L.moe_route
+        self._calls, self._replay, self._taken = [], [], []
+
+        def route(p, x, cfg, group_size=256):
+            import torch
+            import torch.nn.functional as F
+            r = self._route(p, x, cfg, group_size)
+            k = cfg.moe.top_k
+            if not self._replay:
+                self._calls.append(r["gate_idx"].reshape(-1, k))
+                return r
+            idx = self._replay.pop(0).reshape(r["gate_idx"].shape)
+            vals = torch.gather(r["probs"], -1, idx)
+            differ = (idx.sort(-1).values
+                      != r["gate_idx"].sort(-1).values).any(-1)
+            onehot = F.one_hot(idx, cfg.moe.n_experts)
+            flat = onehot.reshape(r["G"], -1, cfg.moe.n_experts)
+            place = ((torch.cumsum(flat, dim=1) * flat).sum(-1) - 1
+                     ).reshape(idx.shape)
+            keep = place < r["C"]
+            self._taken.append((int(differ.sum()), int((~keep).sum())))
+            return dict(r, gate_idx=idx, onehot=onehot, place=place,
+                        keep=keep, gate_vals=vals / torch.clamp(
+                            vals.sum(-1, keepdim=True), min=1e-9))
+        L.moe_route = route
+        return self
+
+    def take(self) -> list:
+        calls, self._calls = self._calls, []
+        return calls
+
+    def replay(self, decode_calls: list, P: int) -> None:
+        import torch
+        n = len(decode_calls) // P
+        check(n * P == len(decode_calls), "decode routed unevenly")
+        # per MoE layer, the (P, B, k) steps in the prefill's batch-major
+        # token order
+        self._replay = [torch.stack(decode_calls[li::n]).transpose(0, 1)
+                        for li in range(n)]
+
+    def taken(self) -> tuple:
+        check(not self._replay, "a replayed routing was not taken")
+        taken, self._taken = self._taken, []
+        return [t[0] for t in taken], sum(t[1] for t in taken)
+
+    def __exit__(self, *exc):
+        self._layers.moe_route = self._route
 
 
 def serve_checks(cfg, B: int, S: int, P: int, G: int, inputs=None) -> dict:
@@ -2240,15 +2396,24 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int, inputs=None) -> dict:
         use_flash set: every token in the vocabulary, 0 flash launches
         (decode is S = 1 against the cache).
     (c) decode_step's logits at the last prompt token against the plain
-        bf16 prefill of the prompt: max |d| at most twice the bf16
-        prefill's own distance from the f32 prefill (decode runs in f32
-        after layer 0, since the caches are f32, so it lies about as far
-        from the bf16 prefill as the f32 prefill does).  A MoE config
-        makes this one comparison at capacity factor 8.0, as the
-        reference's own test does (``tests/test_models.py``): a prefill
-        routes a group of tokens and may drop some at capacity, decode
-        routes one token and never drops.  The timed prefills of (a) run
-        the config's own capacity factor."""
+        prefill of the prompt, in bf16 and in f32.  A prefill routes a
+        group of tokens and may drop some at capacity, decode routes one
+        token and never drops, so a MoE config makes this comparison at
+        a capacity factor of n_experts, every expert's capacity the whole
+        group, and the prefills must drop nothing (the reference's own
+        test raises it to 8.0 for the same reason,
+        ``tests/test_models.py``; at 64 experts, top 6, that still drops
+        slots).  Top-k routing is discontinuous, so each prefill
+        here routes every token to the experts its decode step chose
+        (``replay_routing``), weighted by its own router probabilities.
+        bf16: max |d| at most twice the bf16 prefill's own distance from
+        the f32 prefill at that routing (decode runs in f32 after layer
+        0, since the caches are f32, so it lies about as far from the
+        bf16 prefill as the f32 prefill does).  f32: every logit within
+        5e-4 + 1e-3·|prefill| (the reference's test bounds), and the f32
+        prefill's own routing the same as the f32 decode's for every
+        token.  The timed prefills of (a) run the config's own capacity
+        factor."""
     import dataclasses
     import torch
     from repro_torch.launch import serve
@@ -2355,31 +2520,67 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int, inputs=None) -> dict:
           "a generated token lies outside the vocabulary")
     check(l_gen == none, f"decode launches {l_gen}")
 
+    # every expert's capacity the whole group (C = Sg): a prefill drops no
+    # token, as decode never does
     c_cfg = cfg if cfg.moe is None else dataclasses.replace(
-        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
-    with torch.inference_mode():
-        caches = M.init_caches(c_cfg, B, P,
-                               dtype=torch.float32, device=DEVICE)
-        for t in range(P):
-            logits, caches = M.decode_step(
-                params, {"tokens": prompt[:, t:t + 1], **decode_extra},
-                caches, c_cfg)
-        dec = logits[:, 0].float()
-        del caches
+        cfg, moe=dataclasses.replace(cfg.moe,
+                                     capacity_factor=float(cfg.moe.n_experts)))
+    c32_cfg = dataclasses.replace(c_cfg, compute_dtype="float32")
+
+    def decode_last(c):
+        """decode_step over the prompt; the logits at its last token."""
+        with torch.inference_mode():
+            caches = M.init_caches(c, B, P, dtype=torch.float32,
+                                   device=DEVICE)
+            for t in range(P):
+                logits, caches = M.decode_step(
+                    params, {"tokens": prompt[:, t:t + 1], **decode_extra},
+                    caches, c)
+        return logits[:, 0].float()
+
     prompt_batch = {"tokens": prompt, **extra.get("prompt", {})}
-    pre, _, _ = prefill(c_cfg, prompt_batch, reps=0)
-    pre32, _, _ = prefill(dataclasses.replace(c_cfg, compute_dtype="float32"),
-                          prompt_batch, reps=0)
+    with replay_routing() as routing:
+        dec = decode_last(c_cfg)
+        routes = routing.take()
+        dec32 = decode_last(c32_cfg)
+        routes32 = routing.take()
+        routing.replay(routes, P)
+        pre, _, _ = prefill(c_cfg, prompt_batch, reps=0)
+        flips, drops = routing.taken()
+        routing.replay(routes, P)
+        pre32_same, _, _ = prefill(c32_cfg, prompt_batch, reps=0)
+        drops += routing.taken()[1]
+        routing.replay(routes32, P)
+        pre32, _, _ = prefill(c32_cfg, prompt_batch, reps=0)
+        flips32, drops32 = routing.taken()
+    drops += drops32
     d_dec = float((dec - pre).abs().max())
-    d_bf16 = float((pre - pre32).abs().max())
+    d_bf16 = float((pre - pre32_same).abs().max())
+    d32 = float((dec32 - pre32).abs().max())
     same = int((dec.argmax(-1) == pre.argmax(-1)).sum())
     print(f"  (c) decode vs plain prefill at the last prompt token"
-          f"{'' if cfg.moe is None else ' (capacity factor 8.0)'}: max |d|="
-          f"{d_dec!r} (limit 2 x {d_bf16!r}, the bf16 prefill's distance "
-          f"from f32); decode vs f32 prefill {float((dec - pre32).abs().max())!r}"
-          f"; greedy tokens agree {same} of {B}")
-    check(bool(torch.isfinite(dec).all()), "non-finite decode logits")
+          + ("" if cfg.moe is None else
+             f" (capacity factor {c_cfg.moe.capacity_factor}, the prefill "
+             f"routing each token as its decode step did; {drops} slots "
+             f"dropped)")
+          + f": max |d|={d_dec!r} (limit 2 x {d_bf16!r}, the bf16 prefill's "
+          f"distance from f32); decode vs f32 prefill "
+          f"{float((dec - pre32_same).abs().max())!r}; greedy tokens agree "
+          f"{same} of {B}")
+    print(f"  (c) in f32: decode vs prefill max |d|={d32!r} (limit 5e-4 + "
+          f"1e-3 |prefill|, the reference's test bounds)"
+          + ("" if cfg.moe is None else
+             f"; tokens whose own experts differ from their decode step's, "
+             f"per MoE layer: bf16 {flips}, f32 {flips32} (limit 0)"))
+    check(bool(torch.isfinite(dec).all() and torch.isfinite(dec32).all()),
+          "non-finite decode logits")
+    check(drops == 0, f"the prefills dropped {drops} slots at capacity")
     check(d_dec <= 2 * d_bf16, f"decode {d_dec} from prefill > 2 x {d_bf16}")
+    check(bool(((dec32 - pre32).abs() <= 5e-4 + 1e-3 * pre32.abs()).all()),
+          f"f32 decode {d32} from the f32 prefill")
+    check(not any(flips32), f"f32 decode and prefill route tokens "
+                            f"differently: {flips32}")
+    del dec32
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     print(f"  max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB) at "
@@ -2395,7 +2596,8 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int, inputs=None) -> dict:
             "decode_ms_per_step": gen_s / steps * 1e3,
             "generated_tokens_per_s": B * G / gen_s,
             "peak_bytes": peak, "d_flash": d_flash, "d_plain": d_plain,
-            "d_decode": d_dec}
+            "d_decode": d_dec, "d_decode_f32": d32, "route_flips": flips,
+            "route_flips_f32": flips32}
 
 
 def main() -> int:
@@ -2512,24 +2714,39 @@ def main() -> int:
     done("12")
     print(f"phase 13a: ADPSGD, Qwen2-VL-2B full width and depth (no cut), "
           f"R=4, momentum  card: {card}")
-    qwen_vl = vlm_audio_training("qwen2-vl-2b", QWEN_VL_ARGV)
+    qwen_vl = model_training("qwen2-vl-2b", QWEN_VL_ARGV)
     done("13a")
     print(f"phase 13b: ADPSGD, Whisper-medium full width and depth (no cut), "
           f"R=4, adamw, 1500 frames  card: {card}")
-    whisper = vlm_audio_training("whisper-medium", WHISPER_ARGV,
-                                 setup=add_frames)
+    whisper = model_training("whisper-medium", WHISPER_ARGV,
+                             setup=add_frames)
     done("13b")
     print(f"phase 13c: serving Qwen2-VL-2B and Whisper-medium at full width "
           f"and depth  card: {card}")
     vlm_audio_serving = phase_vlm_audio_serving()
     done("13c")
+    print(f"phase 14a: ADPSGD, xLSTM-350M full width and depth (no cut), "
+          f"R=4, adamw  card: {card}")
+    xlstm = model_training("xlstm-350m", XLSTM_ARGV)
+    done("14a")
+    print(f"phase 14b: ADPSGD, Jamba-1.5-Large full width, cut to 1 of 72 "
+          f"layers (layer 0: Mamba + dense MLP), R=2 (cut from 4), adamw  "
+          f"card: {card}")
+    jamba = model_training("jamba-1.5-large-398b", JAMBA_ARGV)
+    done("14b")
+    print(f"phase 14c: serving xLSTM-350M at full width and depth, "
+          f"Jamba-1.5-Large at full width, 5 of 72 layers, bf16 parameters"
+          f"  card: {card}")
+    ssm_serving = phase_ssm_serving()
+    done("14c")
 
     training = {"adpsgd": main_path, "qsgd_periodic": qp, "qsgd": qs}
     paths = dict(training, serving=serving, clock=clock, **strategies,
                  cnn=cnn, resume=resume, dense_serving=dense,
                  deepseek_training=deepseek, moe_serving=moe_serving,
                  qwen_vl_training=qwen_vl, whisper_training=whisper,
-                 vlm_audio_serving=vlm_audio_serving)
+                 vlm_audio_serving=vlm_audio_serving, xlstm_training=xlstm,
+                 jamba_training=jamba, ssm_serving=ssm_serving)
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in COUNTS}
     print("launches by path: " + json.dumps(
@@ -2573,12 +2790,15 @@ def main() -> int:
          "deepseek": deepseek["timing"]["sync"],
          "qwen2-vl-2b": qwen_vl["timing"]["sync"],
          "whisper-medium": whisper["timing"]["sync"],
+         "xlstm-350m": xlstm["timing"]["sync"],
+         "jamba-1.5-large-398b": jamba["timing"]["sync"],
          "dasgd_snapshot": strategies["dasgd"]["snapshot_timing"]}))
     print("summary: grouped mean_and_sqdev checks " + json.dumps(
         {"phase 2": gerrs, "olmo": main_path["grouped"],
          "cnn": cnn["grouped"], "deepseek": deepseek["grouped"],
          "qwen2-vl-2b": qwen_vl["grouped"],
-         "whisper-medium": whisper["grouped"]}))
+         "whisper-medium": whisper["grouped"], "xlstm-350m": xlstm["grouped"],
+         "jamba-1.5-large-398b": jamba["grouped"]}))
     print(f"summary: mean_and_sqdev embed={timing['embed']} "
           f"uniform_ms_per_exchange={qtiming['uniform_ms']} "
           f"qsgd_periodic last-sync s_k_rel={qp['s_k_rel']} "
@@ -2608,6 +2828,14 @@ def main() -> int:
     print("summary: vlm / audio serving " + json.dumps(
         {arch: {k: v for k, v in vlm_audio_serving[arch].items()
                 if k != "launches"} for arch in VLM_AUDIO_ARCHS}))
+    print("summary: ssm training " + json.dumps(
+        {name: {k: p[k] for k in ("ms", "peak_bytes", "n_syncs", "n_params",
+                                  "s_k_rel", "timing")}
+         for name, p in (("xlstm-350m", xlstm),
+                         ("jamba-1.5-large-398b", jamba))}))
+    print("summary: ssm serving " + json.dumps(
+        {arch: {k: v for k, v in ssm_serving[arch].items()
+                if k != "launches"} for arch in SSM_SERVE}))
     print("summary: phase seconds " + json.dumps(phase_s)
           + f" total {sum(phase_s.values()):.1f}")
     print("summary: clock " + json.dumps(

@@ -6,17 +6,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced   # card
 
 Runs on the card; ``--device cpu`` runs on the CPU.  ``--no-reduced``
-keeps the published widths and ``--layers`` cuts depth.  The dense, MoE,
-vision-language and encoder-decoder configs serve (MLA decodes against
-its latent cache; Qwen2-VL decodes text only; whisper's decoder reads
-the encoder's output over zero frames, computed in f32 as the
-reference's CLI does); families whose decode state is not ported yet
-(SSM, xLSTM) raise ``NotImplementedError``.  The flash-attention kernel
-belongs to the full-sequence forward (``launch/steps.py::
-make_prefill_step`` with ``use_flash`` set on the config) of GQA
-attention without a sliding window, as in the reference: MLA and
-Mixtral's window bypass it, so do the encoder and the cross-attention,
-and decoding feeds one token at a time and never reaches it.
+keeps the published widths and ``--layers`` cuts depth.  Every config
+serves: MLA decodes against its latent cache; Qwen2-VL decodes text
+only; whisper's decoder reads the encoder's output over zero frames,
+computed in f32 as the reference's CLI does; Jamba's Mamba layers and
+xLSTM's mLSTM and sLSTM layers decode against their recurrent states
+(f32, whatever the caches' dtype).  The flash-attention kernel belongs
+to the full-sequence forward (``launch/steps.py::make_prefill_step``
+with ``use_flash`` set on the config) of GQA attention layers without a
+sliding window, as in the reference: MLA and Mixtral's window bypass
+it, so do the encoder, the cross-attention and the recurrent mixers, and
+decoding feeds one token at a time and never reaches it.
 """
 from __future__ import annotations
 

@@ -14,9 +14,11 @@ every N steps (``--no-keep-replicas``: replica-averaged export
 checkpoints).  A run resumes through ``TrainerEngine.load_state``, as in
 the reference.  The mesh placements come with the mesh backend.
 ``--no-reduced`` keeps the published widths and ``--layers`` cuts depth.
-A mixture-of-experts config (``--arch mixtral-8x22b``,
-``deepseek-v2-lite-16b``) adds its aux losses to the loss; the run prints
-them at its first and last step.
+``--arch`` takes every config of ``repro_torch.configs`` (the Mamba
+hybrid ``jamba-1.5-large-398b`` and ``xlstm-350m`` too).  A
+mixture-of-experts config (``--arch mixtral-8x22b``,
+``deepseek-v2-lite-16b``, ``jamba-1.5-large-398b``) adds its aux losses
+to the loss; the run prints them at its first and last step.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Model API: init, full-sequence forward (train / prefill), single-token
 decode against caches, and the LM loss (port of ``repro/models/model.py``
-for the attention families: dense, MoE, MLA, the vision-language model and
-the encoder-decoder).
+for every family: dense, MoE, MLA, the Mamba hybrid, xLSTM, the
+vision-language model and the encoder-decoder).
 
 A batch is a dict with keys by family:
   tokens        (B,S) int                     — always
@@ -33,12 +33,6 @@ from repro_torch.tree import tree_leaves
 Params = Dict[str, Any]
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.layer_pattern is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet: layer_pattern")
-
-
 def init_params(seed: int, cfg: ModelConfig, *,
                 device: DeviceLike = None) -> Params:
     """Random parameters from ``seed``, the reference's
@@ -47,7 +41,6 @@ def init_params(seed: int, cfg: ModelConfig, *,
     scaled and then cast to ``param_dtype`` as there.  An encoder-decoder
     adds each attention block's cross-attention, from
     ``fold_in(ks[2 + i], 7)``, and the encoder tower, from ``ks[-1]``."""
-    _check_ported(cfg)
     device = resolve_device(device)
     dt = L.dtype_of(cfg.param_dtype)
     ks = prng.split(prng.prng_key(seed), cfg.n_layers + 4)
@@ -75,9 +68,9 @@ def init_params(seed: int, cfg: ModelConfig, *,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, *, device: DeviceLike = None) -> Params:
-    """One KV cache per layer and the decode index (an int32 scalar tensor
-    on the caches' device)."""
-    _check_ported(cfg)
+    """One cache per layer — an attention layer's KV cache in ``dtype``, a
+    Mamba, mLSTM or sLSTM layer's recurrent state in f32 — and the decode
+    index (an int32 scalar tensor on the caches' device)."""
     device = resolve_device(device)
     return {
         "layers": [T.init_block_cache(cfg, i, batch, max_len, dtype,
@@ -112,7 +105,6 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Full-sequence forward.  Returns (logits (B,S,V), aux losses: each
     MoE layer's summed over the layers, in layer order).  S includes a
     vision prefix where the batch carries one."""
-    _check_ported(cfg)
     x, pos, mrope = _embed_inputs(params, batch, cfg)
     enc_out = _encode_cross(params, batch, cfg)
     aux_total: Dict[str, torch.Tensor] = {}
@@ -189,11 +181,12 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor],
                 caches: Params, cfg: ModelConfig,
                 ) -> Tuple[torch.Tensor, Params]:
     """One-token decode.  batch["tokens"]: (B,1).  Returns (logits (B,1,V),
-    updated caches); the layers' buffers are updated in place.  MoE aux
-    losses are dropped, as in the reference.  M-RoPE defaults to t = h =
-    w = position, the learned position is the sinusoid at the cache
-    index, and an encoder-decoder reads ``batch["encoder_out"]``."""
-    _check_ported(cfg)
+    updated caches): an attention layer's buffers are updated in place, a
+    recurrent layer's state is replaced by the new tensors its mixer
+    returns.  MoE aux losses are dropped, as in the reference.  M-RoPE
+    defaults to t = h = w = position, the learned position is the
+    sinusoid at the cache index, and an encoder-decoder reads
+    ``batch["encoder_out"]``."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     if S != 1:

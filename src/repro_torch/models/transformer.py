@@ -1,10 +1,12 @@
-"""Block composition (port of the attention-block part of
-``repro/models/transformer.py``): a pre-norm attention sublayer (GQA or
-MLA), a feed-forward sublayer (SwiGLU or GELU MLP, or mixture of
-experts) and, in an encoder-decoder (whisper), a cross-attention
-sublayer, over the full sequence or one token against the block's cache;
-and whisper's bidirectional encoder tower.  Mamba and xLSTM blocks come
-with their families."""
+"""Block composition (port of ``repro/models/transformer.py``): a pre-norm
+mixer sublayer, picked per layer by ``cfg.layer_pattern`` (GQA or MLA
+attention, the Mamba selective SSM, the mLSTM or the sLSTM), a
+feed-forward sublayer (SwiGLU or GELU MLP, or mixture of experts; none
+after an xLSTM block, which carries its own projections) and, in an
+encoder-decoder (whisper), a cross-attention sublayer, over the full
+sequence or one token against the block's cache (the attention's KV
+cache, or the recurrent state of the other mixers); and whisper's
+bidirectional encoder tower."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,31 +18,37 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.device import DeviceLike
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import xlstm as X
 
 Params = Dict[str, Any]
 
 
-def _check_attention_block(cfg: ModelConfig, layer_idx: int) -> None:
-    if cfg.block_kind(layer_idx) != "attn":
-        raise NotImplementedError(
-            f"layer {layer_idx}: {cfg.block_kind(layer_idx)} blocks are not "
-            f"ported yet")
-
-
 def _has_ffn(cfg: ModelConfig, layer_idx: int) -> bool:
+    if cfg.block_kind(layer_idx) in ("mlstm", "slstm"):
+        return False                      # xLSTM blocks are self-contained
     return cfg.d_ff > 0 or cfg.moe is not None
 
 
 def init_block(key: prng.Key, cfg: ModelConfig, layer_idx: int, *,
                device: DeviceLike = None) -> Params:
-    """The key splits 4 ways as the reference's: norm1, the mixer, norm2,
-    the feed-forward: experts where ``layer_uses_moe``, else an MLP of
-    width ``d_ff_dense or d_ff`` below ``first_k_dense`` and ``d_ff``
-    above."""
-    _check_attention_block(cfg, layer_idx)
+    """The key splits 4 ways as the reference's: norm1, the mixer (under
+    the block kind's name), norm2, the feed-forward: experts where
+    ``layer_uses_moe``, else an MLP of width ``d_ff_dense or d_ff`` below
+    ``first_k_dense`` and ``d_ff`` above."""
     ks = prng.split(key, 4)
-    p: Params = {"norm1": L.init_norm(ks[0], cfg, cfg.d_model, device=device),
-                 "attn": L.init_attention(ks[1], cfg, device=device)}
+    kind = cfg.block_kind(layer_idx)
+    p: Params = {"norm1": L.init_norm(ks[0], cfg, cfg.d_model, device=device)}
+    if kind == "attn":
+        p["attn"] = L.init_attention(ks[1], cfg, device=device)
+    elif kind == "mamba":
+        p["mamba"] = M.init_mamba(ks[1], cfg, device=device)
+    elif kind == "mlstm":
+        p["mlstm"] = X.init_mlstm(ks[1], cfg, device=device)
+    elif kind == "slstm":
+        p["slstm"] = X.init_slstm(ks[1], cfg, device=device)
+    else:
+        raise ValueError(kind)
     if _has_ffn(cfg, layer_idx):
         p["norm2"] = L.init_norm(ks[2], cfg, cfg.d_model, device=device)
         m = cfg.moe
@@ -56,9 +64,19 @@ def init_block(key: prng.Key, cfg: ModelConfig, layer_idx: int, *,
 def init_block_cache(cfg: ModelConfig, layer_idx: int, batch: int,
                      max_len: int, dtype=torch.bfloat16, *,
                      device: DeviceLike = None) -> Params:
-    """The attention's cache: GQA's ring buffer or MLA's latent cache."""
-    _check_attention_block(cfg, layer_idx)
-    return L.init_kv_cache(cfg, batch, max_len, dtype, device=device)
+    """The attention's cache (GQA's ring buffer or MLA's latent cache) in
+    ``dtype``; the other mixers' recurrent state in f32 whatever
+    ``dtype`` is, as the reference's."""
+    kind = cfg.block_kind(layer_idx)
+    if kind == "attn":
+        return L.init_kv_cache(cfg, batch, max_len, dtype, device=device)
+    if kind == "mamba":
+        return M.init_mamba_state(cfg, batch, device=device)
+    if kind == "mlstm":
+        return X.init_mlstm_state(cfg, batch, device=device)
+    if kind == "slstm":
+        return X.init_slstm_state(cfg, batch, device=device)
+    raise ValueError(kind)
 
 
 def block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
@@ -71,14 +89,25 @@ def block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                              Optional[Params]]:
     """Returns (x, the feed-forward's aux losses — empty but for MoE —,
-    the block's updated cache — None without a cache).  The cross
-    sublayer (a block with ``cross`` given ``cross_kv``) runs after the
-    feed-forward, as in the reference, which documents the choice; the
-    published whisper puts it between self-attention and the MLP."""
+    the block's updated cache — None without a cache).  The attention
+    updates its KV cache in place and returns it; the recurrent mixers
+    return their new state as new tensors.  The cross sublayer (a block
+    with ``cross`` given ``cross_kv``) runs after the feed-forward, as in
+    the reference, which documents the choice; the published whisper puts
+    it between self-attention and the MLP."""
+    kind = cfg.block_kind(layer_idx)
     h = L.norm_forward(p["norm1"], x, cfg)
-    h, new_cache = L.attention_forward(p["attn"], h, cfg, positions=positions,
-                                       cache=cache, cache_index=cache_index,
-                                       mrope_pos=mrope_pos)
+    new_cache = None
+    if kind == "attn":
+        h, new_cache = L.attention_forward(
+            p["attn"], h, cfg, positions=positions, cache=cache,
+            cache_index=cache_index, mrope_pos=mrope_pos)
+    elif kind == "mamba":
+        h, new_cache = M.mamba_forward(p["mamba"], h, cfg, state=cache)
+    elif kind == "mlstm":
+        h, new_cache = X.mlstm_forward(p["mlstm"], h, cfg, state=cache)
+    elif kind == "slstm":
+        h, new_cache = X.slstm_forward(p["slstm"], h, cfg, state=cache)
     x = x + h * cfg.residual_scale
     aux: Dict[str, torch.Tensor] = {}
     if "norm2" in p:

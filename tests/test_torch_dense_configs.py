@@ -87,10 +87,12 @@ def test_parallelism_plan_refuses_what_no_backend_reads(change):
 
 
 def test_available_configs_lists_the_ported_configs():
+    """Every config of the reference is ported."""
     got = available_configs()
     assert set(ARCHS + ["olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b",
-                        "qwen2-vl-2b", "whisper-medium"]) == set(got)
-    assert set(got) <= set(jax_available_configs())
+                        "qwen2-vl-2b", "whisper-medium", "xlstm-350m",
+                        "jamba-1.5-large-398b"]) == set(got)
+    assert list(got) == list(jax_available_configs())
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -72,6 +72,15 @@ VLM_AUDIO_LEAF_SHAPES = [(151936, 1536), (1536, 1536), (1536, 256),
                          (51865, 1024), (1024, 1024), (1024, 4096),
                          (4096, 1024), (4096,), (1024,)]
 
+# each distinct leaf shape of xLSTM-350M's training path that the lists
+# above have not (the mLSTM's gate biases, norm, conv, projections and
+# gates, the sLSTM's recurrence and feed-forward), then Jamba's Mamba
+# block's (A_log, conv, dt_proj, x_proj, D)
+SSM_LEAF_SHAPES = [(4,), (2048,), (4, 2048), (2048, 2048), (4, 256, 1024),
+                   (1024, 1344), (1344, 1024), (2048, 8), (2048, 1024),
+                   (16384, 16), (4, 16384), (512, 16384), (16384, 544),
+                   (16384,)]
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", DEEPSEEK_LEAF_SHAPES)
@@ -84,6 +93,13 @@ def test_kernel_at_deepseek_leaf_shapes(cuda, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", VLM_AUDIO_LEAF_SHAPES)
 def test_kernel_at_vlm_audio_leaf_shapes(cuda, shape):
+    """As at DeepSeek's leaf shapes."""
+    _check_leaf(cuda, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSM_LEAF_SHAPES)
+def test_kernel_at_ssm_leaf_shapes(cuda, shape):
     """As at DeepSeek's leaf shapes."""
     _check_leaf(cuda, shape)
 
@@ -193,13 +209,16 @@ def test_grouped_kernel_on_a_tree_of_the_cases(cuda, R, mode):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["mean", "sync", "delta"])
-@pytest.mark.parametrize("family", ["deepseek", "vlm_audio"])
-def test_grouped_kernel_at_the_families_leaf_shapes(cuda, family, mode):
+@pytest.mark.parametrize("family,R", [("deepseek", 4), ("vlm_audio", 4),
+                                      ("ssm", 2), ("ssm", 4)])
+def test_grouped_kernel_at_the_families_leaf_shapes(cuda, family, R, mode):
     """R = 4 over DeepSeek-V2-Lite's leaf shapes, then Qwen2-VL-2B's and
-    Whisper-medium's, each list as one tree."""
+    Whisper-medium's, each list as one tree; xLSTM-350M's and Jamba's at R
+    = 2 (Jamba's training path) and 4 (xLSTM's)."""
     shapes = {"deepseek": DEEPSEEK_LEAF_SHAPES,
-              "vlm_audio": VLM_AUDIO_LEAF_SHAPES}[family]
-    _check_many(cuda, shapes, 4, mode, seed=len(shapes))
+              "vlm_audio": VLM_AUDIO_LEAF_SHAPES,
+              "ssm": SSM_LEAF_SHAPES}[family]
+    _check_many(cuda, shapes, R, mode, seed=len(shapes))
     torch.cuda.empty_cache()
 
 
@@ -464,11 +483,12 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, H, K, d, dtype, tol,
 
 # (B, S, H, K, d) of one prefill layer of each dense config served:
 # MiniCPM-2B (MHA, d 64), GLM4-9B (16:1 GQA) and Qwen2.5-14B (5:1 GQA);
-# then Qwen2-VL-2B (6:1 GQA, 64 patches + 1984 tokens) and Whisper-medium's
-# decoder (MHA at d 64, batch 4)
+# then Qwen2-VL-2B (6:1 GQA, 64 patches + 1984 tokens), Whisper-medium's
+# decoder (MHA at d 64, batch 4) and Jamba's attention layer (8:1 GQA, 64
+# heads)
 DENSE_PREFILL = [(1, 2048, 36, 36, 64), (1, 2048, 32, 2, 128),
                  (1, 2048, 40, 8, 128), (1, 2048, 12, 2, 128),
-                 (4, 512, 16, 16, 64)]
+                 (4, 512, 16, 16, 64), (1, 2048, 64, 8, 128)]
 
 
 @pytest.mark.cuda
