@@ -51,21 +51,34 @@ and a dense MLP, R = 2) with ADPSGD, and serves xLSTM-350M whole and
 Jamba cut to layers 0-4 (four Mamba layers, two of them with 16 experts,
 and the attention layer, through flash) with bf16 parameters; the
 recurrent mixers (the selective scan, the mLSTM's chunks, the sLSTM's
-steps) run as plain PyTorch, in the reference as here.  Each path is
-driven with the launch counts set to 0 just before it and read just
-after.
+steps) run as plain PyTorch, in the reference as here.  Phase 15, run
+after phase 9 while phases 3, 3b and 7's final W are still on the host,
+starts one NCCL rank in this process and trains phase 3's ADPSGD, phase
+3b's qsgd_periodic and phase 7's dasgd and hier_adpsgd with ``--backend
+mesh`` (``backends/mesh.py``): each history and final W must equal the
+vmap run's bit for bit (at world 1 the chunk is every replica), with the
+``torch.distributed`` calls of every program counted (a local step: its
+metrics mean alone; a sync: 2 all-reduces, also on an 8-leaf tree; a
+quantized sync: one all_gather of R_local × ``payload_bytes``), the
+mean + sqdev kernel in its modes mean and sync_to (and delta_to for
+DaSGD; both divide the all-reduced sum by the world size as they read
+it), and the mesh sync timed beside the vmap one; then the training
+CLI runs 4 steps under ``torch.distributed.run --standalone
+--nproc-per-node 1``.  The process group is destroyed before the last
+two lines.  Each path is driven with the launch counts set to 0 just
+before it and read just after.
 
 Phases: 1 environment and build (no kernel may spill registers; TF32
 off, deterministic cuDNN); 2 kernels against their plain versions (the
-grouped mean + sqdev in its three modes at every case and on a tree of
+grouped mean + sqdev in its five modes at every case and on a tree of
 the cases at each R; the training phases hold it again on their final
 W, and time one sync of it four ways); 3, 3b, 3c the training paths; 4
 kernel timings; 5 serving; 6 the clock; 7 the last three strategies; 8
 the CNN experiment; 9 checkpoint / resume; 10 the dense configs served;
 11 the MoE family trained; 12 the MoE family served; 13a-c the
 vision-language and audio models trained and served; 14a-c the Mamba
-hybrid and xLSTM families trained and served.  Each phase prints
-its seconds.  Any failed check exits non-zero.
+hybrid and xLSTM families trained and served; 15 the mesh backend
+(after 9).  Each phase prints its seconds.  Any failed check exits non-zero.
 The card's ``nvidia-smi`` name and power limit stand on the line before
 the ``{"kernels": [...]}`` line, and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -479,11 +492,93 @@ def check_grouped(leaves, source, label: str) -> dict:
     return {"sq_rel": sq_rel, "s_k_rel": s_k_rel}
 
 
+def check_grouped_given(leaves, source, label: str) -> dict:
+    """The grouped mean_and_sqdev in modes sync_to and delta_to (the mesh
+    backend's write-back of the all-reduced sum of the ranks' means, and
+    its DaSGD delta over the snapshot in place), given each leaf's plain
+    sum over its rows in index order and the divisor R: the sum over R,
+    a true division, is the plain mean bit for bit (checked), so every
+    row must equal the plain mean, and mean − w, bitwise; each leaf's sq
+    within ``check_grouped``'s tolerance; S_k within rtol 1e-5; each mode
+    twice, bitwise the same; one launch covering every leaf per call.
+    ``source(i)`` gives leaf i as it was (both modes write).  One delta
+    buffer serves both runs of delta_to, so a tree of 20 GB fits beside
+    its copy."""
+    import torch
+    from repro_torch.kernels import param_variance as pv
+    from repro_torch.kernels.ref import mean_and_sqdev_ref
+
+    release()
+    R, L = leaves[0].shape[0], len(leaves)
+    given = pv.new_out(leaves, "mean")
+    sums = pv.out_views(given, leaves, "mean")
+    divisor = torch.tensor(float(R), device=given.device)
+    sqs = []
+    for i, (x, s) in enumerate(zip(leaves, sums)):
+        x.copy_(source(i))                  # a sync may have written it
+        m_ref, sq = mean_and_sqdev_ref(x)
+        s.copy_(x[0])
+        for r in range(1, R):
+            s.add_(x[r])
+        check(torch.equal(s / divisor, m_ref),
+              f"{label}: the plain sum over R is not the plain mean at "
+              f"leaf {i}")
+        sqs.append(sq)
+        del m_ref
+    want_sq, want_s_k = torch.stack(sqs), sum(sqs) / R
+    tol = torch.tensor([1e-4 if x[0].numel() > 1e8 else 1e-5
+                        for x in leaves], device=want_sq.device)
+    sq_rel = s_k_rel = 0.0
+    for mode in ("sync_to", "delta_to"):
+        out = None if mode == "sync_to" else pv.new_out(leaves, mode)
+        targets = leaves if out is None else pv.out_views(out, leaves, mode)
+        runs = []
+        for rep in range(2):
+            for i, t in enumerate(targets):
+                t.copy_(source(i))
+            before = (pv.mean_and_sqdev.launches, pv.mean_and_sqdev.leaves)
+            sq, s_k = pv.mean_and_sqdev_many(targets, mode, out, given, R)
+            launched = (pv.mean_and_sqdev.launches - before[0],
+                        pv.mean_and_sqdev.leaves - before[1])
+            check(launched == (1, L), f"{label}: mode {mode} made "
+                                      f"{launched} (launches, leaves)")
+            for i, (t, s) in enumerate(zip(targets, sums)):
+                m = s / divisor
+                ok = (torch.equal(t, m.unsqueeze(0).expand_as(t))
+                      if mode == "sync_to"
+                      else torch.equal(t, m.unsqueeze(0) - source(i)))
+                check(ok, f"{label}: mode {mode} differs from plain at leaf "
+                          f"{i}")
+                del m
+            runs.append((sq, s_k))
+        del out, targets
+        (sq, s_k), (sq2, s_k2) = runs
+        check(torch.equal(sq, sq2) and torch.equal(s_k, s_k2),
+              f"{label}: mode {mode} not bitwise repeatable")
+        check(bool(((sq - want_sq).abs() <= tol * want_sq).all()),
+              f"{label}: mode {mode} sq beyond its tolerance")
+        rel = abs(float(s_k) - float(want_s_k)) / max(float(want_s_k), 1e-30)
+        check(rel <= 1e-5, f"{label}: mode {mode} S_k rel {rel} > 1e-5")
+        pos = want_sq > 0
+        if bool(pos.any()):
+            sq_rel = max(sq_rel, float(((sq - want_sq).abs()[pos]
+                                        / want_sq[pos]).max()))
+        s_k_rel = max(s_k_rel, rel)
+    for i, x in enumerate(leaves):
+        x.copy_(source(i))
+    del given, sums
+    print(f"  grouped given sum / R {label}: {L} leaves R={R} max sq rel "
+          f"{sq_rel:.3e} s_k rel {s_k_rel:.3e}; writes bitwise; repeats "
+          f"bitwise; 1 launch a call")
+    return {"sq_rel": sq_rel, "s_k_rel": s_k_rel}
+
+
 def phase_grouped_kernels(device) -> dict:
-    """The grouped mean_and_sqdev (``check_grouped``) at every
-    ``KERNEL_CASES`` shape alone, then on one tree of all the cases' shapes
-    at each R that has several; W drawn on the card from a seed per leaf,
-    and drawn again to put it back or to hold it unchanged."""
+    """The grouped mean_and_sqdev (``check_grouped``, then
+    ``check_grouped_given``) at every ``KERNEL_CASES`` shape alone, then
+    on one tree of all the cases' shapes at each R that has several; W
+    drawn on the card from a seed per leaf, and drawn again to put it back
+    or to hold it unchanged."""
     import torch
 
     gen = torch.Generator(device=device)
@@ -505,6 +600,9 @@ def phase_grouped_kernels(device) -> dict:
         label = (f"R={R} {tree[0][1]}" if len(tree) == 1
                  else f"tree of the R={R} cases")
         errs = check_grouped(leaves, lambda i, t=tree: draw(*t[i]), label)
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+        errs = check_grouped_given(leaves, lambda i, t=tree: draw(*t[i]),
+                                   label)
         worst = {k: max(worst[k], errs[k]) for k in worst}
         del leaves
     release()
@@ -995,6 +1093,7 @@ def phase_qsgd_periodic() -> dict:
     check(n >= 4, f"only {n} syncs")
     check(out["launches"] == want, f"launches {out['launches']} != {want}")
     s_k_kernel = hist.s_k[-1]
+    out["mesh_ref"] = dict(resume_ref(engine, hist), ms=out["ms"])
     del engine
     release()
 
@@ -1252,6 +1351,8 @@ def phase_strategies() -> dict:
     check_sync_launches(out["launches"], hist.n_syncs)
     results["hier_adpsgd"] = {k: out[k] for k in ("launches", "ms", "calls")}
     results["hier_adpsgd"]["inner_sync_steps"] = hist.inner_sync_steps
+    results["hier_adpsgd"]["mesh_ref"] = dict(resume_ref(engine, hist),
+                                              ms=out["ms"])
     del engine, hist      # hist holds the final W and optimizer state
     release()
 
@@ -1295,7 +1396,8 @@ def phase_strategies() -> dict:
     results["dasgd"] = {k: out[k] for k in ("launches", "ms", "calls")}
     results["dasgd"]["s_k_rel"] = rels
     results["dasgd"]["resume_ref"] = dict(resume_ref(engine, hist),
-                                          snaps=snaps, applies=applies)
+                                          snaps=snaps, applies=applies,
+                                          ms=out["ms"])
     results["dasgd"]["snapshot_timing"] = snapshot_timing(engine.backend,
                                                           engine.W)
     del engine, hist      # hist holds the final W and optimizer state
@@ -1729,6 +1831,289 @@ def phase_resume(main_ref: dict, dasgd_ref: dict) -> dict:
     out["launches"] = {k: out["adpsgd"]["launches"][k]
                        + out["dasgd"]["launches"][k] for k in COUNTS}
     return out
+
+
+# ----------------------------------------------------------------- phase 15
+def on_mesh(argv, steps=None):
+    """``argv`` with ``--backend mesh`` (and ``steps`` steps if given)."""
+    argv = list(argv)
+    argv[argv.index("--backend") + 1] = "mesh"
+    if steps is not None:
+        argv[argv.index("--steps") + 1] = str(steps)
+    return argv
+
+
+class Collectives:
+    """Every ``torch.distributed`` collective call while installed, with
+    its op and the bytes of the tensor handed to it, in ``calls``."""
+
+    OPS = ("all_reduce", "all_gather", "all_gather_into_tensor",
+           "broadcast", "reduce_scatter", "reduce", "gather", "scatter",
+           "all_to_all", "barrier")
+
+    def __init__(self):
+        import torch
+        import torch.distributed as dist
+        self.calls, self._orig = [], {}
+        for op in self.OPS:
+            fn = getattr(dist, op, None)
+            if fn is None:
+                continue
+            self._orig[op] = fn
+
+            def call(*a, _op=op, _fn=fn, **kw):
+                t = a[1] if _op == "all_gather" else (a[0] if a else None)
+                self.calls.append((_op, t.numel() * t.element_size()
+                                   if isinstance(t, torch.Tensor) else 0))
+                return _fn(*a, **kw)
+            setattr(dist, op, call)
+
+    def close(self) -> None:
+        import torch.distributed as dist
+        for op, fn in self._orig.items():
+            setattr(dist, op, fn)
+
+
+def mesh_run(label: str, argv, ref: dict) -> dict:
+    """``argv`` on the mesh through ``drive``, each program's collective
+    calls recorded (the metrics mean apart); its history and final W held
+    to the vmap run ``ref`` bit for bit."""
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    log = []
+    counter = Collectives()
+
+    def wrap(engine, name, fn):
+        backend = engine.backend
+        if not hasattr(backend, "_tagged"):
+            backend._tagged = [0]
+            metrics_mean = backend._metrics_mean
+
+            def tagged(m):
+                backend._tagged[0] += 1
+                return metrics_mean(m)
+            backend._metrics_mean = tagged
+
+        def run(*a):
+            before, tag = len(counter.calls), backend._tagged[0]
+            out = fn(*a)
+            log.append((name, counter.calls[before:],
+                        backend._tagged[0] - tag))
+            return out
+        return run
+
+    try:
+        out = drive(argv, wrap=wrap)
+    finally:
+        counter.close()
+    engine, hist = out.pop("engine"), out.pop("hist")
+    W = [x.cpu() for x in tree_leaves(engine.W)]
+    same = {k: getattr(hist, k) == ref[k]
+            for k in ("losses", "sync_steps", "period_history", "s_k",
+                      "n_syncs")}
+    same["W"] = len(W) == len(ref["W"]) and all(
+        torch.equal(a, b) for a, b in zip(W, ref["W"]))
+    print(f"  {label} on the mesh: history and final W bitwise the vmap "
+          f"run's: {same}")
+    check(all(same.values()), f"{label}: the mesh run differs from vmap: "
+                              f"{same}")
+    by_program = {}
+    for name, calls, tagged in log:
+        by_program.setdefault(name, []).append(
+            ([op for op, _ in calls], [n for _, n in calls], tagged))
+    for name, rows in by_program.items():
+        print(f"  {label} collectives per {name} call: "
+              f"{sorted({(tuple(ops), tagged) for ops, _, tagged in rows})}")
+    steps = by_program.get("step", [])
+    check(len(steps) == len(hist.losses) and all(
+        ops == ["all_reduce"] and tagged == 1 and n[0] <= 64
+        for ops, n, tagged in steps),
+        f"{label}: a local step issued a collective besides its metrics "
+        f"mean")
+    out.update(engine=engine, hist=hist, by_program=by_program,
+               describe=engine.backend.describe())
+    return out
+
+
+def mesh_cli() -> dict:
+    """The training CLI under ``torch.distributed.run --standalone
+    --nproc-per-node 1``: phase 3's arguments on the mesh, 4 steps."""
+    import os
+    argv = on_mesh(MAIN_ARGV, steps=4)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train", *argv]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=str(ROOT), capture_output=True,
+                         text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
+    print(f"  CLI under the launcher ({dt:.1f} s, exit {res.returncode}): "
+          f"{' '.join(cmd[1:])}")
+    for ln in lines:
+        print(f"    {ln}")
+    check(res.returncode == 0, f"the CLI under torch.distributed.run "
+                               f"failed:\n{res.stderr[-3000:]}")
+    check(any("'backend': 'mesh'" in ln and "'process_group': 'nccl'" in ln
+              for ln in lines), "the CLI did not print the mesh's describe()")
+    return {"seconds": dt, "exit": res.returncode}
+
+
+def phase_mesh(refs: dict) -> dict:
+    """The mesh backend over NCCL at world 1 on the card: one NCCL rank
+    in this process (``launch/mesh.py::init_group``; the CLI's own group
+    below); phase 3's ADPSGD, phase 3b's qsgd_periodic and phase 7's dasgd
+    and hier_adpsgd with ``--backend mesh``, each history and final W
+    bitwise the vmap run's (``refs``); the collective calls of every
+    program (a local step: none but its metrics mean, one all-reduce of a
+    few floats; a sync: two, the mean bucket and S_k; a quantized sync:
+    one all_gather of R_local × ``payload_bytes(n_params, n_leaves)``;
+    DaSGD's snapshot and apply: one each); the sync on an 8-leaf tree
+    (the CNN's leaf shapes) to show the count does not follow the
+    leaves; the sync's time beside the vmap sync's (host clock) and its
+    kernel part by CUDA events; then the CLI under the launcher."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.backends import make_backend
+    from repro_torch.backends.ops import quantized_all_mean_op
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    mesh_mod.init_group(torch.device("cuda", 0))
+    print(f"  NCCL group of 1 rank up in {time.perf_counter() - t0:.2f} s "
+          f"(backend {dist.get_backend()}, torch.distributed "
+          f"{torch.__version__})")
+    out = {"launches": dict.fromkeys(COUNTS, 0)}
+    try:
+        for label, argv in (("adpsgd", MAIN_ARGV),
+                            ("qsgd_periodic", QSGD_PERIODIC_ARGV),
+                            ("dasgd", DASGD_ARGV),
+                            ("hier_adpsgd", HIER_ARGV)):
+            run = mesh_run(label, on_mesh(argv), refs[label])
+            engine, hist = run.pop("engine"), run.pop("hist")
+            calls, progs = run["calls"], run["by_program"]
+            n = hist.n_syncs
+            if label == "qsgd_periodic":
+                n_params = sum(x.numel() for x in tree_leaves(engine.W)) \
+                    // engine.backend.n_local
+                payload = quantized_all_mean_op(BITS).payload_bytes(
+                    n_params, N_LEAVES)
+                syncs = progs["sync"]
+                check(syncs[0][0] == ["all_reduce"] * 3 and all(
+                    ops == ["all_gather"]
+                    and nb == [engine.backend.n_local * payload]
+                    for ops, nb, _ in syncs[1:]),
+                    f"quantized syncs' collectives {syncs}")
+                q = N_LEAVES * 4 * (n - 1)
+                want = {"mean_and_sqdev": 2 + N_LEAVES * (n - 1),
+                        LEAVES: 2 * N_LEAVES + N_LEAVES * (n - 1),
+                        "sqnorm": N_LEAVES * (n - 1), "quantize": q,
+                        "dequantize": q, "flash_attention": 0}
+                run["payload_bytes"] = engine.backend.n_local * payload
+            else:
+                syncs = progs.get("sync", []) + progs.get("full_sync", [])
+                if label == "dasgd":
+                    check(all(ops == ["all_reduce"] for ops, _, _ in
+                              progs["sync"] + progs["sync_apply"]),
+                          "a DaSGD snapshot or apply issued other than one "
+                          "all-reduce")
+                    k = 2 * calls.get("full_sync", 0) + calls["sync"] \
+                        + calls["sync_apply"]
+                else:
+                    check(all(ops == ["all_reduce", "all_reduce"]
+                              for ops, _, _ in syncs),
+                          f"{label}: a sync issued other than 2 "
+                          f"all-reduces")
+                    k = 2 * calls["sync"]
+                    check(all(ops == [] for ops, _, _ in
+                              progs.get("inner_sync", [])),
+                          "an inner sync inside the chunk issued a "
+                          "collective")
+                want = dict(dict.fromkeys(COUNTS, 0), mean_and_sqdev=k,
+                            **{LEAVES: N_LEAVES * k})
+            check(run["launches"] == want,
+                  f"{label}: launches {run['launches']} != {want}")
+            for key in COUNTS:
+                out["launches"][key] += run["launches"][key]
+            if label == "adpsgd":
+                out["timing"] = mesh_sync_timing(engine, refs)
+            out[label] = {k: run[k] for k in ("ms", "peak_bytes", "n_syncs",
+                                              "launches", "describe")}
+            out[label]["collectives"] = {
+                name: sorted({(tuple(ops), tagged) for ops, _, tagged in rows})
+                for name, rows in progs.items()}
+            print(f"  {label} mesh: sync ms median "
+                  f"{run['ms'].get('sync')!r} (vmap "
+                  f"{refs[label]['ms'].get('sync')!r}); peak "
+                  f"{run['peak_bytes']} B")
+            del engine, hist, run
+            release()
+        small = make_backend("mesh")
+        small.bind(4)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        tree = [torch.randn((4, *s), generator=gen, device="cuda")
+                for s in CNN_LEAF_SHAPES]
+        counter = Collectives()
+        try:
+            small.all_mean()(tree, None)
+        finally:
+            counter.close()
+        ops = [op for op, _ in counter.calls]
+        print(f"  sync of an {len(tree)}-leaf tree: collectives {ops} (OLMo's"
+              f" {N_LEAVES} leaves: 2 all-reduces)")
+        check(ops == ["all_reduce", "all_reduce"],
+              f"the 8-leaf sync issued {ops}")
+        out["small_tree_collectives"] = ops
+        del tree, small
+    finally:
+        dist.destroy_process_group()
+    release()
+    out["cli"] = mesh_cli()
+    return out
+
+
+def mesh_sync_timing(engine, refs) -> dict:
+    """One mesh sync on the run's final W (noised first, since a run may
+    end on a sync): the whole program (kernel, NCCL all-reduce of the
+    bucket and of S_k) and its kernel part (modes mean + sync_to) by CUDA
+    events, beside the vmap sync's kernel (mode sync)."""
+    import torch
+    from repro_torch.kernels import param_variance as pv
+    from repro_torch.tree import tree_leaves
+
+    engine.opt_state = None
+    release()
+    leaves = tree_leaves(engine.W)
+    gen = torch.Generator(device=leaves[0].device)
+    gen.manual_seed(7)
+    with torch.no_grad():
+        for x in leaves:
+            x.add_(torch.randn(x.shape, generator=gen, device=x.device),
+                   alpha=0.01)
+    sync = engine.backend.all_mean()
+    mean = pv.new_out(leaves, "mean")
+
+    def kernel_part():
+        pv.mean_and_sqdev_many(leaves, "mean", mean)
+        pv.mean_and_sqdev_many(leaves, "sync_to", None, mean,
+                               engine.backend.world)
+
+    row = {"program_ms": cuda_ms(lambda: sync(engine.W, None), 10),
+           "kernel_ms": cuda_ms(kernel_part, 10),
+           "vmap_kernel_ms": cuda_ms(
+               lambda: pv.mean_and_sqdev_many(leaves, "sync"), 10)}
+    row["bound_ms"], row["bound_by"] = fused_sync_bound(
+        [tuple(x.shape) for x in leaves])
+    print(f"  timing mesh sync ({len(leaves)} leaves): program "
+          f"{row['program_ms']!r} ms (kernels + NCCL at world 1), kernels "
+          f"{row['kernel_ms']!r} ms (mean + sync_to), vmap kernel "
+          f"{row['vmap_kernel_ms']!r} ms (sync); fused bound "
+          f"{row['bound_ms']!r} ({row['bound_by']})")
+    del mean
+    return row
 
 
 # ----------------------------------------------------------------- phase 10
@@ -2658,11 +3043,12 @@ def main() -> int:
 
     print("phase 3: ADPSGD, OLMo-1B full width, 4 layers, R=4")
     main_path = phase_main_path()
-    main_ref = main_path.pop("resume_ref")
+    main_ref = dict(main_path.pop("resume_ref"), ms=main_path["ms"])
     release()
     done("3")
     print("phase 3b: qsgd_periodic, OLMo-1B full width, 4 layers, R=4")
     qp = phase_qsgd_periodic()
+    qp_ref = qp.pop("mesh_ref")
     release()
     done("3b")
     print("phase 3c: qsgd, OLMo-1B full width, 4 layers, R=4")
@@ -2690,6 +3076,7 @@ def main() -> int:
           "width, 4 layers, R=4")
     strategies = phase_strategies()
     dasgd_ref = strategies["dasgd"].pop("resume_ref")
+    hier_ref = strategies["hier_adpsgd"].pop("mesh_ref")
     done("7")
     print(f"phase 8: the paper's CNN experiment, 9 strategies x 10 / 100 "
           f"Gbps  card: {card}")
@@ -2698,8 +3085,14 @@ def main() -> int:
     print(f"phase 9: checkpoint / resume, OLMo-1B full width, 4 layers, R=4 "
           f"(no cut)  card: {card}")
     resume = phase_resume(main_ref, dasgd_ref)
-    del main_ref, dasgd_ref
     done("9")
+    print(f"phase 15: the mesh backend over NCCL (world 1), OLMo-1B full "
+          f"width, 4 layers, R=4, against phases 3, 3b and 7  card: {card}")
+    mesh = phase_mesh({"adpsgd": main_ref, "qsgd_periodic": qp_ref,
+                       "dasgd": dasgd_ref, "hier_adpsgd": hier_ref})
+    del main_ref, qp_ref, dasgd_ref, hier_ref
+    release()
+    done("15")
     print(f"phase 10: serving MiniCPM-2B, GLM4-9B, Qwen2.5-14B at full width "
           f"and depth  card: {card}")
     dense = phase_dense_serving()
@@ -2746,7 +3139,7 @@ def main() -> int:
                  deepseek_training=deepseek, moe_serving=moe_serving,
                  qwen_vl_training=qwen_vl, whisper_training=whisper,
                  vlm_audio_serving=vlm_audio_serving, xlstm_training=xlstm,
-                 jamba_training=jamba, ssm_serving=ssm_serving)
+                 jamba_training=jamba, ssm_serving=ssm_serving, mesh=mesh)
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in COUNTS}
     print("launches by path: " + json.dumps(
@@ -2836,6 +3229,8 @@ def main() -> int:
     print("summary: ssm serving " + json.dumps(
         {arch: {k: v for k, v in ssm_serving[arch].items()
                 if k != "launches"} for arch in SSM_SERVE}))
+    print("summary: mesh " + json.dumps(
+        {k: v for k, v in mesh.items() if k != "launches"}, default=str))
     print("summary: phase seconds " + json.dumps(phase_s)
           + f" total {sum(phase_s.values()):.1f}")
     print("summary: clock " + json.dumps(

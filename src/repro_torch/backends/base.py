@@ -15,6 +15,13 @@ descriptor itself (``op.wire_bytes``) into the clock's Timeline.  Ops with
 
 Every backend has a device, resolved at construction: the card unless the
 caller passes ``device="cpu"`` (without CUDA, the default raises).
+
+A backend whose replicas live in several processes (``world`` > 1, the
+mesh backend) holds ``n_local`` = R / world of them in each, a contiguous
+chunk from replica ``rank · n_local``.  The hooks ``stack_params``,
+``local_replicas``, ``gather_replicas``, ``get`` and ``is_writer`` keep
+the engine and the checkpoints free of that: a one-process backend holds
+every replica, and each hook is the identity there.
 """
 from __future__ import annotations
 
@@ -44,6 +51,8 @@ class ExecutionBackend:
     """
 
     name = "base"
+    rank = 0                   # this process's place in the world
+    world = 1                  # processes the replicas are spread over
 
     def __init__(self, *, use_kernel: Optional[bool] = None,
                  device: DeviceLike = None):
@@ -54,6 +63,27 @@ class ExecutionBackend:
 
     def bind(self, n_replicas: int) -> None:
         self.n_replicas = int(n_replicas)
+
+    def kernel_policy(self) -> bool:
+        """Whether the kernels run on this backend's device."""
+        return (self.device.type == "cuda" if self.use_kernel is None
+                else self.use_kernel)
+
+    def kernel_on(self, W) -> bool:
+        """Whether the kernels run on the parameters ``W``."""
+        if self.use_kernel is not None:
+            return self.use_kernel
+        return tree_leaves(W)[0].is_cuda
+
+    @property
+    def n_local(self) -> int:
+        """Replicas this process holds."""
+        return (self.n_replicas or 1) // self.world
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints and histories."""
+        return self.rank == 0
 
     def describe(self) -> Dict[str, Any]:
         return {"backend": self.name, "n_replicas": self.n_replicas,
@@ -70,8 +100,9 @@ class ExecutionBackend:
         """Wrap a program so each invocation reports one ``(compute_s,
         comm_s, bytes)`` record into the bound clock's Timeline.  Bytes
         are ``op.wire_bytes`` of the per-replica parameter count, read off
-        the stacked first operand per call; the collective kind and group
-        ride the op; ``overlap=True`` ops return an ``InFlightOp``."""
+        the stacked first operand (this process's replicas) per call; the
+        collective kind and group ride the op; ``overlap=True`` ops return
+        an ``InFlightOp``."""
 
         def wrapped(*args):
             clock = self.clock
@@ -84,8 +115,7 @@ class ExecutionBackend:
                 if op.group:
                     n = int(op.group)
                 leaves = tree_leaves(args[0])
-                n_params = (sum(x.numel() for x in leaves)
-                            // max(1, self.n_replicas or 1))
+                n_params = sum(x.numel() for x in leaves) // self.n_local
                 nbytes = op.wire_bytes(n_params, n, n_tensors=len(leaves))
             if op.overlap:
                 out, rec = clock.dispatch_async(
@@ -105,6 +135,26 @@ class ExecutionBackend:
             raise KeyError(
                 f"backend '{self.name}' cannot lower op '{op.name}'")
         return self.timed(op, build(op, **kw))
+
+    # ---------------------------------------------- named-op sugar
+    # thin wrappers over lower(<canonical op>) for tests and benchmarks;
+    # strategies emit the descriptors directly
+
+    def replica_step(self, loss_fn, optimizer) -> Callable:
+        """(W, opt_state, batch, lr) -> (W, opt_state, metrics); no
+        collective in the step itself."""
+        return self.lower(collective_ops.replica_step_op(),
+                          loss_fn=loss_fn, optimizer=optimizer)
+
+    def full_step(self, loss_fn, optimizer) -> Callable:
+        """(W, opt_state, batch, lr) -> (W, opt_state, metrics); gradients
+        all-reduced every call (FULLSGD)."""
+        return self.lower(collective_ops.full_step_op(),
+                          loss_fn=loss_fn, optimizer=optimizer)
+
+    def opt_mean(self) -> Callable:
+        """(opt_state) -> opt_state averaged across replicas."""
+        return self.lower(collective_ops.opt_mean_op())
 
     def all_mean(self, *, sync_momentum: bool = False) -> Callable:
         """(W, opt_state) -> (W, opt_state, s_k): the replica average and
@@ -141,6 +191,37 @@ class ExecutionBackend:
         return self.lower(collective_ops.apply_delta_op())
 
     # ------------------------------------------------------------ placement
+    def stack_params(self, params0: Pytree) -> Pytree:
+        """This process's replicas of a single-model tree: ``n_local``
+        identical copies on its device."""
+        return avg.stack_replicas(self.put_params(params0), self.n_local)
+
+    def local_replicas(self, tree: Pytree) -> Pytree:
+        """This process's rows of a tree stacked over all R replicas (a
+        checkpoint, a batch); the tree itself where it holds them all."""
+        return tree
+
+    def gather_replicas(self, tree: Pytree) -> Pytree:
+        """The tree stacked over all R replicas from each process's rows
+        (the checkpoint's, placement-neutral layout); the tree itself where
+        this process holds them all."""
+        return tree
+
+    def get(self, tree: Pytree) -> Pytree:
+        """A replica-stacked tree over all R replicas, on the host."""
+        return tree_map(lambda x: x.detach().cpu(),
+                        self.gather_replicas(tree))
+
+    def parameter_variance(self, W: Pytree) -> torch.Tensor:
+        """Var[W_k] over all R replicas (paper Eq. 7)."""
+        return avg.parameter_variance(W)
+
+    def barrier(self) -> None:
+        """Wait for every process (after a checkpoint is written)."""
+
+    def close(self) -> None:
+        """Release what the backend set up (the mesh's process group)."""
+
     def put_params(self, W: Pytree) -> Pytree:
         return tree_map(lambda x: x.to(self.device), W)
 

@@ -117,11 +117,28 @@ def apply_delta_op() -> CollectiveOp:
     return CollectiveOp("apply_delta", None)
 
 
+class Deferred:
+    """Outputs an overlap program has not finished: its collective is in
+    flight (the mesh backend's snapshot).  ``finish()`` waits for it and
+    returns the outputs (``finish``, the callable given, computes them)."""
+
+    def __init__(self, finish):
+        self.finish = finish
+
+
+def settle(outputs):
+    """The outputs of an overlap program: ``outputs.finish()`` for a
+    ``Deferred``, the outputs themselves otherwise."""
+    return outputs.finish() if isinstance(outputs, Deferred) else outputs
+
+
 class InFlightOp:
     """A dispatched ``overlap=True`` collective whose results have not been
     fetched.  Its work is queued on the same CUDA stream as the steps, so
-    it reads W before the next step writes it; ``fetch()`` returns the
-    outputs and settles the exchange with the bound clock exactly once."""
+    it reads W before the next step writes it; its outputs may be a
+    ``Deferred`` whose collective is still in flight.  ``fetch()`` returns
+    the outputs and settles the exchange with the bound clock exactly
+    once."""
 
     def __init__(self, op: CollectiveOp, outputs, clock=None, record=None):
         self.op = op
@@ -134,6 +151,8 @@ class InFlightOp:
         if not self.fetched:
             self.fetched = True
             if self._clock is not None:
-                self._clock.complete_async(self.op.name, self._record,
-                                           self._outputs)
+                self._outputs = self._clock.complete_async(
+                    self.op.name, self._record, self._outputs)
+            else:
+                self._outputs = settle(self._outputs)
         return self._outputs

@@ -12,7 +12,6 @@ import torch
 
 from repro_torch.backends.base import ExecutionBackend, register_backend
 from repro_torch.core import averaging as avg
-from repro_torch.core import prng
 from repro_torch.core import qsgd as qsgd_mod
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -26,15 +25,7 @@ class VmapBackend(ExecutionBackend):
     name = "vmap"
 
     def describe(self):
-        d = super().describe()
-        d["use_kernel"] = (self.device.type == "cuda"
-                           if self.use_kernel is None else self.use_kernel)
-        return d
-
-    def kernel_on(self, W) -> bool:
-        if self.use_kernel is not None:
-            return self.use_kernel
-        return tree_leaves(W)[0].is_cuda
+        return dict(super().describe(), use_kernel=self.kernel_policy())
 
     def _lower_replica_step(self, op, *, loss_fn, optimizer):
         return avg.make_local_step(loss_fn, optimizer)
@@ -89,16 +80,14 @@ class VmapBackend(ExecutionBackend):
 
     def _lower_quantized_all_mean(self, op):
         """Byte-true QSGD-quantized parameter deltas from the shared
-        full-precision anchor, leaf by leaf: the R f32 deltas ``w_r −
-        anchor`` of a leaf are formed together and their norms taken in
-        one call (with the kernel; R − 1 deltas more alive than one at a
-        time), then each replica r quantizes its delta under
-        ``split(fold_in(key, r), n_leaves)[leaf]`` into (int8 levels,
-        norm); the receiver
-        dequantizes all R into one (R, ...) f32 buffer, whose replica mean
-        and Σ_r ||dq_r − mean||² the fused mean + sqdev kernel gives in one
-        pass.  The anchor moves by the mean, in place, and is written into
-        every replica.  Returns (W, anchor, S_k)."""
+        full-precision anchor, leaf by leaf: each replica r quantizes its
+        delta ``w_r − anchor`` under ``split(fold_in(key, r),
+        n_leaves)[leaf]`` into (int8 levels, norm)
+        (``qsgd.quantize_deltas``, the R deltas' norms in one call); the
+        receiver dequantizes all R into one (R, ...) f32 buffer, whose
+        replica mean moves the anchor, in place, and is written into every
+        replica, with Σ_r ||dq_r − mean||² from the same pass
+        (``qsgd.apply_deltas``).  Returns (W, anchor, S_k)."""
         bits = op.wire.bits
         kernel = self.use_kernel is not False
 
@@ -106,29 +95,18 @@ class VmapBackend(ExecutionBackend):
         def qsync(W, anchor, key):
             leaves, anchors = tree_leaves(W), tree_leaves(anchor)
             R = leaves[0].shape[0]
-            leaf_keys = [prng.split(k, len(leaves))
-                         for k in qsgd_mod.replica_keys(key, range(R))]
+            keys = qsgd_mod.delta_keys(key, range(R), len(leaves))
             s_k = 0
             for i, (w, a) in enumerate(zip(leaves, anchors)):
-                deltas = [w[r].to(torch.float32) - a for r in range(R)]
-                nms = qsgd_mod.norms(deltas) if kernel else [None] * R
                 dq = torch.empty(w.shape, dtype=torch.float32,
                                  device=w.device)
-                for r in range(R):
-                    lv, nm = qsgd_mod.quantize(
-                        deltas[r], leaf_keys[r][i], bits, use_kernel=kernel,
-                        norm=nms[r])
-                    deltas[r] = None
+                for r, lv, nm in qsgd_mod.quantize_deltas(
+                        w, a, keys, i, bits, use_kernel=kernel):
                     dq[r] = qsgd_mod.dequantize(lv, nm, bits,
                                                 use_kernel=kernel)
-                if kernel:
-                    mean_d, sq = kops.param_mean_and_sqdev(dq)
-                else:
-                    mean_d, sq = kref.mean_and_sqdev_ref(dq)
+                s_k = s_k + qsgd_mod.apply_deltas(w, a, dq,
+                                                  use_kernel=kernel) / R
                 del dq
-                s_k = s_k + sq / R
-                a.add_(mean_d)
-                w.copy_(a.unsqueeze(0).expand_as(w))
             return W, anchor, s_k
 
         return qsync

@@ -137,6 +137,13 @@ class ModelConfig:
 
 
 PLANS = ("replica_dp", "fsdp", "replica_ddp")
+REPLICA_TP_SLICE = (
+    "the port's mesh backend runs placement 'replica_ddp' (whole-model "
+    "replicas, one or more a GPU); placement 'replica_tp' (a replica "
+    "spread over a 'model' axis: --model-parallel above 1) and the fields "
+    "only it reads (shard_activations, remat_policy, vocab_parallel_embed) "
+    "are the next slice of the port, with launch/sharding.py's base_spec "
+    "rules")
 
 
 @dataclass(frozen=True)
@@ -147,9 +154,9 @@ class ParallelismPlan:
     only the mesh launch tooling reads ``plan``, never the ``vmap``
     backend, so the port carries any of the reference's plans as data and
     its ``vmap`` backend ignores it just the same.  The other fields are
-    read by the mesh backend alone, which the port has not yet: until then
-    they keep their defaults, and another value is refused rather than
-    ignored."""
+    read by the mesh backend alone, whose port runs the ``replica_ddp``
+    placement: until ``replica_tp`` is ported they keep their defaults,
+    and another value is refused rather than ignored."""
 
     plan: str = "replica_dp"
     placement: str = "replica_ddp"
@@ -166,8 +173,7 @@ class ParallelismPlan:
                 if f.name != "plan" and getattr(self, f.name) != f.default]
         if set_:
             raise NotImplementedError(
-                f"ParallelismPlan({', '.join(set_)}): the port has no mesh "
-                f"backend yet, so only the default placement runs")
+                f"ParallelismPlan({', '.join(set_)}): {REPLICA_TP_SLICE}")
 
 
 @dataclass(frozen=True)

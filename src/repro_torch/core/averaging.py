@@ -16,7 +16,7 @@ optimizer state in place and return them.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -26,6 +26,10 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 Pytree = Any
 LossFn = Callable[[Pytree, Dict[str, torch.Tensor]],
                   Tuple[torch.Tensor, Dict]]
+# (this process's f32 gradient sums, its metrics) -> (the sums over every
+# replica, the metrics' mean over every replica, R)
+Exchange = Callable[[List[torch.Tensor], Dict[str, torch.Tensor]],
+                    Tuple[List[torch.Tensor], Dict[str, torch.Tensor], int]]
 
 
 def stack_replicas(tree: Pytree, n: int) -> Pytree:
@@ -52,11 +56,30 @@ def replica_view(tree: Pytree, r: int) -> Pytree:
 def parameter_variance(W: Pytree) -> torch.Tensor:
     """Var[W_k] = (1/n) Σ_i ||W̄ − w_i||²  (paper Eq. 7), summed over the
     entire parameter vector, in float32."""
-    def leaf_var(x):
-        xf = x.to(torch.float32)
-        mean = xf.mean(dim=0, keepdim=True)
-        return (xf - mean).square().sum() / x.shape[0]
-    return sum(leaf_var(x) for x in tree_leaves(W))
+    leaves = tree_leaves(W)
+    return sync_to(leaves, leaf_means(leaves), write=False)
+
+
+def leaf_means(leaves):
+    """Each stacked leaf's replica mean in f32, one leaf at a time."""
+    return (x.to(torch.float32).mean(dim=0) for x in leaves)
+
+
+@torch.no_grad()
+def sync_to(leaves, means, *, write: bool = True) -> torch.Tensor:
+    """The plain sync against given f32 means (one per stacked leaf, its
+    replica shape): Σ_l Σ_i ||w_i − m_l||² / R_l, with each m_l written
+    into every replica of its leaf when ``write``.  With each leaf's own
+    mean it is the plain route of ``sync_replicas`` and
+    ``parameter_variance``; the mesh backend gives it the mean over every
+    process."""
+    S_k = 0
+    for x, m in zip(leaves, means):
+        m = m.unsqueeze(0)
+        S_k = S_k + (x.to(torch.float32) - m).square().sum() / x.shape[0]
+        if write:
+            x.copy_(m.expand_as(x))
+    return S_k
 
 
 def value_and_grad(loss_fn: LossFn, params: Pytree, batch):
@@ -123,16 +146,11 @@ def sync_replicas(W: Pytree, opt_state: Optional[Pytree] = None, *,
     kernel once over all leaves in its sync mode, which writes the mean
     back itself (the reference runs its kernel once per leaf)."""
     leaves = tree_leaves(W)
-    R = leaves[0].shape[0]
     if use_kernel:
         from repro_torch.kernels import ops as kops
         _, S_k = kops.param_mean_and_sqdev_many(leaves, "sync")
     else:
-        S_k = 0
-        for x in leaves:
-            m = x.to(torch.float32).mean(dim=0, keepdim=True)
-            S_k = S_k + (x.to(torch.float32) - m).square().sum() / R
-            x.copy_(m.expand_as(x))
+        S_k = sync_to(leaves, leaf_means(leaves))
     if opt_state is not None and sync_momentum:
         opt_state = sync_opt_state(opt_state)
     return W, opt_state, S_k
@@ -160,9 +178,12 @@ def sync_opt_state(opt_state: Pytree) -> Pytree:
     return opt_state
 
 
-def make_full_step(loss_fn: LossFn, optimizer: Optimizer):
+def make_full_step(loss_fn: LossFn, optimizer: Optimizer,
+                   exchange: Optional[Exchange] = None):
     """FULLSGD baseline: gradients are averaged across replicas every step
-    (vanilla synchronous data-parallel SGD)."""
+    (vanilla synchronous data-parallel SGD).  ``exchange`` (the mesh
+    backend's) sums the replicas' gradients over the processes; without
+    it W holds every replica."""
 
     def step(W, opt_state, batch, lr):
         R = n_replicas(W)
@@ -174,16 +195,19 @@ def make_full_step(loss_fn: LossFn, optimizer: Optimizer):
             g_sum = gf if g_sum is None else [a + b for a, b in zip(g_sum, gf)]
             losses.append(loss)
             auxs.append(aux)
+        metrics = {"loss": torch.stack(losses).mean(),
+                   **(_mean_metrics(auxs) if auxs[0] else {})}
+        n = R
+        if exchange is not None:
+            g_sum, metrics, n = exchange(g_sum, metrics)
         g_mean = tree_unflatten(
             replica_view(W, 0),
-            [(g / R).to(p.dtype) for g, p in
+            [(g / n).to(p.dtype) for g, p in
              zip(g_sum, tree_leaves(replica_view(W, 0)))])
         with torch.no_grad():
             for r in range(R):
                 optimizer.update(g_mean, replica_view(opt_state, r),
                                  replica_view(W, r), lr)
-        metrics = {"loss": torch.stack(losses).mean(),
-                   **(_mean_metrics(auxs) if auxs[0] else {})}
         return W, opt_state, metrics
 
     return step

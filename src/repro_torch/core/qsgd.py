@@ -20,12 +20,12 @@ caller takes all their norms in one call (``norms``) and hands each to
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.averaging import (_mean_metrics, n_replicas,
+from repro_torch.core.averaging import (Exchange, _mean_metrics, n_replicas,
                                         replica_view, value_and_grad)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -71,6 +71,46 @@ def dequantize(levels: torch.Tensor, norm: torch.Tensor, bits: int = 8,
     return out.to(dtype)
 
 
+def delta_keys(key: prng.Key, replica_ids: Sequence[int], n_leaves: int
+               ) -> List[List[prng.Key]]:
+    """The quantized sync's keys: ``split(fold_in(key, r), n_leaves)`` for
+    each global replica index r of ``replica_ids``."""
+    return [prng.split(k, n_leaves) for k in replica_keys(key, replica_ids)]
+
+
+def quantize_deltas(w: torch.Tensor, anchor: torch.Tensor, keys, leaf: int,
+                    bits: int = 8, *, use_kernel: bool = True):
+    """The quantized sync's sender side for one leaf: the f32 deltas
+    ``w_j − anchor`` of the stacked replicas of ``w`` are formed together
+    and their norms taken in one call (with the kernel), then each is
+    quantized under ``keys[j][leaf]``.  Yields (j, int8 levels, f32 norm)
+    replica by replica, each delta dropped once quantized."""
+    deltas = [w[j].to(torch.float32) - anchor for j in range(len(w))]
+    nms = norms(deltas) if use_kernel else [None] * len(w)
+    for j in range(len(w)):
+        lv, nm = quantize(deltas[j], keys[j][leaf], bits,
+                          use_kernel=use_kernel, norm=nms[j])
+        deltas[j] = None
+        yield j, lv, nm
+
+
+@torch.no_grad()
+def apply_deltas(w: torch.Tensor, anchor: torch.Tensor, dq: torch.Tensor, *,
+                 use_kernel: bool = True) -> torch.Tensor:
+    """The quantized sync's receiver side for one leaf: the replica mean of
+    the R dequantized deltas ``dq`` (R, ...) f32 and Σ_r ||dq_r − mean||²
+    in one pass (the fused mean + sqdev kernel, or its plain version); the
+    anchor moves by the mean, in place, and is written into every replica
+    of ``w``.  Returns the sum of squares."""
+    if use_kernel:
+        mean_d, sq = kops.param_mean_and_sqdev(dq)
+    else:
+        mean_d, sq = kref.mean_and_sqdev_ref(dq)
+    anchor.add_(mean_d)
+    w.copy_(anchor.unsqueeze(0).expand_as(w))
+    return sq
+
+
 def quantize_pytree(grads: Pytree, key: prng.Key, bits: int = 8, *,
                     use_kernel: bool = True) -> Pytree:
     """Quantize → dequantize round trip of every leaf (dtype kept)."""
@@ -106,7 +146,9 @@ def dequantize_split_pytree(levels: Pytree, norms: Pytree, bits: int = 8,
 
 
 def make_qsgd_step(loss_fn, optimizer: Optimizer, bits: int = 8, *,
-                   use_kernel: bool = True):
+                   use_kernel: bool = True,
+                   replica_ids: Optional[Sequence[int]] = None,
+                   exchange: Optional[Exchange] = None):
     """Full-communication step with quantized gradients:
     step(W, opt_state, batch, lr, key) -> (W, opt_state, metrics).
 
@@ -116,13 +158,16 @@ def make_qsgd_step(loss_fn, optimizer: Optimizer, bits: int = 8, *,
     gradient-sized buffer beside one replica's gradients); the mean,
     cast to each parameter's dtype, updates every replica alike.  With
     ``use_kernel`` the norms of a replica's leaves are taken in one call
-    before its quantize loop."""
+    before its quantize loop.  On the mesh backend W holds this process's
+    replicas, ``replica_ids`` their global indices (the keys' stream) and
+    ``exchange`` sums the dequantized gradients over the processes."""
 
     def step(W, opt_state, batch, lr, key):
         R = n_replicas(W)
         g_sum: List[torch.Tensor] = []
         losses, auxs = [], []
-        for r, rkey in enumerate(replica_keys(key, range(R))):
+        ids = range(R) if replica_ids is None else replica_ids
+        for r, rkey in enumerate(replica_keys(key, ids)):
             loss, aux, grads = value_and_grad(
                 loss_fn, replica_view(W, r), replica_view(batch, r))
             leaves = tree_leaves(grads)
@@ -143,17 +188,20 @@ def make_qsgd_step(loss_fn, optimizer: Optimizer, bits: int = 8, *,
                         g_sum[i].add_(dq)
             losses.append(loss)
             auxs.append(aux)
+        metrics = {"loss": torch.stack(losses).mean(),
+                   **(_mean_metrics(auxs) if auxs[0] else {})}
+        n = R
+        if exchange is not None:
+            g_sum, metrics, n = exchange(g_sum, metrics)
         params0 = tree_leaves(replica_view(W, 0))
         g_mean = tree_unflatten(
             replica_view(W, 0),
-            [(g / R).to(p.dtype) for g, p in zip(g_sum, params0)])
+            [(g / n).to(p.dtype) for g, p in zip(g_sum, params0)])
         del g_sum
         with torch.no_grad():
             for r in range(R):
                 optimizer.update(g_mean, replica_view(opt_state, r),
                                  replica_view(W, r), lr)
-        metrics = {"loss": torch.stack(losses).mean(),
-                   **(_mean_metrics(auxs) if auxs[0] else {})}
         return W, opt_state, metrics
 
     return step

@@ -12,7 +12,17 @@
 //     mean   the mean into an output buffer (the reference's contract);
 //     sync   the mean back into all R rows of w, in place (the sync);
 //     delta  mean - w[r, c] into an output buffer of w's size (DaSGD's
-//            snapshot), w only read.
+//            snapshot), w only read;
+//     sync_to, delta_to
+//            the sync and the delta against a given mean, read from a
+//            buffer (`mean`) and divided by `divisor` (a true division)
+//            instead of summed from the rows: the mesh backend's
+//            write-back of the all-reduced sum of the ranks' chunk means
+//            (divisor the world size), and its DaSGD delta from it.
+//            sq[l] is then sum_{r, c} (w[r, c] - mean[c])^2 against that
+//            mean, with the same arithmetic, in the same order, as the
+//            other modes.  delta_to may write its output over w itself
+//            (each thread reads its values before it writes them).
 // The mean sums the replicas in index order and divides by R with a true
 // division, as kernels/ref.py::mean_and_sqdev_ref does, so it is bitwise
 // the plain version's.
@@ -62,7 +72,16 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-enum Mode : int { kMean = 0, kSync = 1, kDelta = 2 };
+enum Mode : int { kMean = 0, kSync = 1, kDelta = 2, kSyncTo = 3,
+                  kDeltaTo = 4 };
+
+// The modes that read the mean from a buffer, and what each mode writes.
+template <int MODE>
+constexpr bool kGivenMean = MODE == kSyncTo || MODE == kDeltaTo;
+template <int MODE>
+constexpr bool kWritesRows = MODE == kSync || MODE == kSyncTo;
+template <int MODE>
+constexpr bool kWritesDelta = MODE == kDelta || MODE == kDeltaTo;
 
 // One row of the leaf table: five int64, as the wrapper packs them.
 struct Leaf {
@@ -131,15 +150,16 @@ __device__ __forceinline__ float block_sum(float v, float* warp_sums) {
 template <int MODE, typename V>
 __device__ __forceinline__ void put(V* w, V* out, int64_t cols, int64_t c,
                                     int r, V m, V x) {
-  if (MODE == kSync) w[r * cols + c] = m;
-  if (MODE == kDelta) out[r * cols + c] = sub(m, x);
+  if (kWritesRows<MODE>) w[r * cols + c] = m;
+  if (kWritesDelta<MODE>) out[r * cols + c] = sub(m, x);
 }
 
 // One tile with R fixed: thread t takes the V-columns c0 + t + k*kThreads,
 // k < PER, reads all of their R values, then writes.  Returns the thread's
 // sum of squared deviations.
 template <int R, int MODE, typename V, int PER>
-__device__ __forceinline__ float tile_fixed(V* w, V* out, int64_t cols,
+__device__ __forceinline__ float tile_fixed(V* w, V* out, const V* mean,
+                                            float divisor, int64_t cols,
                                             int64_t c0) {
   V v[PER][R];
   bool ok[PER];
@@ -157,10 +177,15 @@ __device__ __forceinline__ float tile_fixed(V* w, V* out, int64_t cols,
   for (int k = 0; k < PER; ++k) {
     if (!ok[k]) continue;
     const int64_t c = c0 + threadIdx.x + k * kThreads;
-    V s = v[k][0];
+    V m;
+    if constexpr (kGivenMean<MODE>) {
+      m = div(mean[c], divisor);
+    } else {
+      V s = v[k][0];
 #pragma unroll
-    for (int r = 1; r < R; ++r) s = add(s, v[k][r]);
-    const V m = div(s, static_cast<float>(R));
+      for (int r = 1; r < R; ++r) s = add(s, v[k][r]);
+      m = div(s, static_cast<float>(R));
+    }
 #pragma unroll
     for (int r = 0; r < R; ++r) acc = sq_add(acc, sub(v[k][r], m));
     if (MODE == kMean) out[c] = m;
@@ -174,16 +199,21 @@ __device__ __forceinline__ float tile_fixed(V* w, V* out, int64_t cols,
 // value for the deviations and the writes.  Not inlined: inlined into the
 // tile loop, ptxas spilled a few bytes of it in two of the modes.
 template <int MODE, typename V>
-__device__ __noinline__ float tile_any(V* w, V* out, int64_t cols,
-                                       int64_t c0, int64_t width,
-                                       int rows) {
+__device__ __noinline__ float tile_any(V* w, V* out, const V* mean,
+                                       float divisor, int64_t cols,
+                                       int64_t c0, int64_t width, int rows) {
   const float n = static_cast<float>(rows);
   float acc = 0.0f;
   const int64_t end = c0 + width < cols ? c0 + width : cols;
   for (int64_t c = c0 + threadIdx.x; c < end; c += kThreads) {
-    V s = w[c];
-    for (int r = 1; r < rows; ++r) s = add(s, w[r * cols + c]);
-    const V m = div(s, n);
+    V m;
+    if constexpr (kGivenMean<MODE>) {
+      m = div(mean[c], divisor);
+    } else {
+      V s = w[c];
+      for (int r = 1; r < rows; ++r) s = add(s, w[r * cols + c]);
+      m = div(s, n);
+    }
     if (MODE == kMean) out[c] = m;
     for (int r = 0; r < rows; ++r) {
       const V x = w[r * cols + c];
@@ -195,28 +225,34 @@ __device__ __noinline__ float tile_any(V* w, V* out, int64_t cols,
 }
 
 template <int R, int MODE, typename V>
-__device__ __forceinline__ float tile(float* w, float* out, int64_t cols,
+__device__ __forceinline__ float tile(float* w, float* out, const float* mean,
+                                      float divisor, int64_t cols,
                                       int64_t start, int rows) {
   constexpr int kWidth = sizeof(V) / sizeof(float);
   V* wv = reinterpret_cast<V*>(w);
   V* ov = reinterpret_cast<V*>(out);
+  const V* mv = reinterpret_cast<const V*>(mean);
   if constexpr (R == 0) {
-    return tile_any<MODE, V>(wv, ov, cols / kWidth, start / kWidth,
-                             tile_cols_for(rows) / kWidth, rows);
+    return tile_any<MODE, V>(wv, ov, mv, divisor, cols / kWidth,
+                             start / kWidth, tile_cols_for(rows) / kWidth,
+                             rows);
   } else {
     constexpr int kPer =
         static_cast<int>(tile_cols_for(R) / kWidth / kThreads);
-    return tile_fixed<R, MODE, V, kPer>(wv, ov, cols / kWidth,
+    return tile_fixed<R, MODE, V, kPer>(wv, ov, mv, divisor, cols / kWidth,
                                         start / kWidth);
   }
 }
 
 // Pass 1: the tiles, tile t in block t mod gridDim.x.  `table` null means
-// one leaf, `single`, whose tiles are all of them.
+// one leaf, `single`, whose tiles are all of them.  `mean` is the given
+// mean buffer of sync_to and delta_to (each value divided by `divisor`),
+// null otherwise.
 template <int R, int MODE>
 __global__ void __launch_bounds__(kThreads)
 mean_sqdev_tiles(const Leaf* __restrict__ table,
                  const int* __restrict__ tile_leaf, Leaf single, float* out,
+                 const float* mean, float divisor,
                  float* __restrict__ partials, long long n_tiles, int rows) {
   __shared__ float warp_sums[2][kWarps];
   const long long tile_cols = tile_cols_for(R > 0 ? R : rows);
@@ -236,9 +272,11 @@ mean_sqdev_tiles(const Leaf* __restrict__ table,
     float* w = reinterpret_cast<float*>(addr);
     float* o = out == nullptr
                    ? nullptr
-                   : out + (MODE == kDelta ? rows * off : off);
-    const float acc = vec ? tile<R, MODE, float4>(w, o, cols, start, rows)
-                          : tile<R, MODE, float>(w, o, cols, start, rows);
+                   : out + (kWritesDelta<MODE> ? rows * off : off);
+    const float* mn = mean == nullptr ? nullptr : mean + off;
+    const float acc =
+        vec ? tile<R, MODE, float4>(w, o, mn, divisor, cols, start, rows)
+            : tile<R, MODE, float>(w, o, mn, divisor, cols, start, rows);
     const float s = block_sum(acc, warp_sums[parity]);
     if (threadIdx.x == 0) partials[t] = s;
     parity ^= 1;
@@ -274,51 +312,68 @@ mean_sqdev_leaves(const Leaf* __restrict__ table,
 
 template <int MODE>
 void launch_tiles(int rows, const Leaf* table, const int* tile_leaf,
-                  const Leaf& single, float* out, float* partials,
-                  long long n_tiles, int blocks, cudaStream_t s) {
+                  const Leaf& single, float* out, const float* mean,
+                  float divisor, float* partials, long long n_tiles,
+                  int blocks, cudaStream_t s) {
   switch (rows) {
     case 2:
       mean_sqdev_tiles<2, MODE><<<blocks, kThreads, 0, s>>>(
-          table, tile_leaf, single, out, partials, n_tiles, rows);
+          table, tile_leaf, single, out, mean, divisor, partials, n_tiles,
+          rows);
       break;
     case 4:
       mean_sqdev_tiles<4, MODE><<<blocks, kThreads, 0, s>>>(
-          table, tile_leaf, single, out, partials, n_tiles, rows);
+          table, tile_leaf, single, out, mean, divisor, partials, n_tiles,
+          rows);
       break;
     case 8:
       mean_sqdev_tiles<8, MODE><<<blocks, kThreads, 0, s>>>(
-          table, tile_leaf, single, out, partials, n_tiles, rows);
+          table, tile_leaf, single, out, mean, divisor, partials, n_tiles,
+          rows);
       break;
     case 16:
       mean_sqdev_tiles<16, MODE><<<blocks, kThreads, 0, s>>>(
-          table, tile_leaf, single, out, partials, n_tiles, rows);
+          table, tile_leaf, single, out, mean, divisor, partials, n_tiles,
+          rows);
       break;
     default:
       mean_sqdev_tiles<0, MODE><<<blocks, kThreads, 0, s>>>(
-          table, tile_leaf, single, out, partials, n_tiles, rows);
+          table, tile_leaf, single, out, mean, divisor, partials, n_tiles,
+          rows);
   }
 }
 
 int run(const Leaf* table, const int* tile_leaf, const Leaf& single,
         int n_leaves, long long n_tiles, int rows, int mode,
-        long long tile_cols, float* out, float* partials, float* sq,
-        float* s_k, int blocks, cudaStream_t s) {
+        long long tile_cols, float* out, const float* mean, float divisor,
+        float* partials, float* sq, float* s_k, int blocks, cudaStream_t s) {
+  const bool rows_only = mode == kSync || mode == kSyncTo;
+  const bool given = mode == kSyncTo || mode == kDeltaTo;
   if (rows < 1 || n_leaves < 1 || n_tiles < 1 || blocks < 1 ||
-      tile_cols != tile_cols_for(rows) || (mode != kSync && out == nullptr)) {
+      tile_cols != tile_cols_for(rows) || (!rows_only && out == nullptr) ||
+      given != (mean != nullptr) || !(divisor > 0.0f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (mode) {
     case kMean:
-      launch_tiles<kMean>(rows, table, tile_leaf, single, out, partials,
-                          n_tiles, blocks, s);
+      launch_tiles<kMean>(rows, table, tile_leaf, single, out, nullptr,
+                          divisor, partials, n_tiles, blocks, s);
       break;
     case kSync:
-      launch_tiles<kSync>(rows, table, tile_leaf, single, nullptr, partials,
-                          n_tiles, blocks, s);
+      launch_tiles<kSync>(rows, table, tile_leaf, single, nullptr, nullptr,
+                          divisor, partials, n_tiles, blocks, s);
       break;
     case kDelta:
-      launch_tiles<kDelta>(rows, table, tile_leaf, single, out, partials,
-                           n_tiles, blocks, s);
+      launch_tiles<kDelta>(rows, table, tile_leaf, single, out, nullptr,
+                           divisor, partials, n_tiles, blocks, s);
+      break;
+    case kSyncTo:
+      launch_tiles<kSyncTo>(rows, table, tile_leaf, single, nullptr, mean,
+                            divisor, partials, n_tiles, blocks, s);
+      break;
+    case kDeltaTo:
+      launch_tiles<kDeltaTo>(rows, table, tile_leaf, single, out, mean,
+                             divisor, partials, n_tiles, blocks, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -335,12 +390,16 @@ int run(const Leaf* table, const int* tile_leaf, const Leaf& single,
 // All leaves of a tree in one pass: `table` (n_leaves rows of five int64,
 // on the device) and `tile_leaf` (the leaf of each of the n_tiles tiles,
 // int32, on the device) as the wrapper builds them; `out` the mean (mode 0)
-// or delta (mode 2) buffer, null for the sync (mode 1); `partials` n_tiles
-// floats of scratch; `sq` n_leaves floats; `s_k` one float.
+// or delta (modes 2 and 4) buffer, null for the syncs (modes 1 and 3);
+// `mean` the given mean buffer of modes 3 and 4, null for the others, and
+// `divisor` what each of its values is divided by (1 for the other modes);
+// `partials` n_tiles floats of scratch; `sq` n_leaves floats; `s_k` one
+// float.
 extern "C" int repro_mean_sqdev_many_f32(
     const void* table, const void* tile_leaf, int n_leaves,
     long long n_tiles, int rows, int mode, long long tile_cols, void* out,
-    void* partials, void* sq, void* s_k, int blocks, void* stream) {
+    const void* mean, float divisor, void* partials, void* sq, void* s_k,
+    int blocks, void* stream) {
   if (table == nullptr || tile_leaf == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -348,7 +407,9 @@ extern "C" int repro_mean_sqdev_many_f32(
   return run(static_cast<const Leaf*>(table),
              static_cast<const int*>(tile_leaf), none, n_leaves, n_tiles,
              rows, mode, tile_cols, static_cast<float*>(out),
-             static_cast<float*>(partials), static_cast<float*>(sq),
+             static_cast<const float*>(mean), divisor,
+             static_cast<float*>(partials),
+             static_cast<float*>(sq),
              static_cast<float*>(s_k), blocks, static_cast<cudaStream_t>(stream));
 }
 
@@ -362,7 +423,8 @@ extern "C" int repro_mean_sqdev_f32(const void* w, void* mean, void* partials,
                                     int blocks, void* stream) {
   const Leaf single{reinterpret_cast<long long>(w), cols, 0, 0, vec};
   return run(nullptr, nullptr, single, 1, n_tiles, rows, kMean, tile_cols,
-             static_cast<float*>(mean), static_cast<float*>(partials),
+             static_cast<float*>(mean), nullptr, 1.0f,
+             static_cast<float*>(partials),
              static_cast<float*>(sq), static_cast<float*>(s_k), blocks,
              static_cast<cudaStream_t>(stream));
 }

@@ -12,13 +12,14 @@ def param_mean_and_sqdev(w):
     return _pv.mean_and_sqdev(w)
 
 
-def param_mean_and_sqdev_many(leaves, mode: str = "sync", out=None):
-    return _pv.mean_and_sqdev_many(leaves, mode, out)
+def param_mean_and_sqdev_many(leaves, mode: str = "sync", out=None,
+                              mean=None, divisor: int = 1):
+    return _pv.mean_and_sqdev_many(leaves, mode, out, mean, divisor)
 
 
 def param_mean_and_sqdev_out(leaves, mode: str):
     """A flat output buffer for ``param_mean_and_sqdev_many`` in ``mode``
-    ("mean" or "delta") and each leaf's view of it."""
+    ("mean", "delta" or "delta_to") and each leaf's view of it."""
     out = _pv.new_out(leaves, mode)
     return out, _pv.out_views(out, leaves, mode)
 

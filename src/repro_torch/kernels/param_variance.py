@@ -10,8 +10,15 @@ of a parameter tree, in one of three modes:
 * ``"sync"``: the mean written back into all R replicas, in place;
 * ``"delta"``: ``mean − w_r`` into an output buffer of W's size, W only
   read (DaSGD's snapshot);
+* ``"sync_to"`` and ``"delta_to"``: the sync and the delta against a
+  given mean (a mean buffer, ``mean=``, each value divided by
+  ``divisor``) instead of the replicas' own: the mesh backend's
+  write-back of the all-reduced sum of the ranks' means (``divisor`` the
+  world size) and its DaSGD delta; ``"delta_to"`` may write over its
+  leaves (``out`` the buffer whose ``out_views`` they are);
 
-and gives each leaf's Σ_i ||mean − w_i||² and S_k = Σ_l sq_l / R.
+and gives each leaf's Σ_i ||mean − w_i||² (against the given mean in the
+``_to`` modes) and S_k = Σ_l sq_l / R.
 ``mean_and_sqdev`` is the reference's one-leaf contract, the same kernel
 with its leaf passed by value.  A CPU tensor goes to the plain version
 (``kernels/ref.py``) and a CUDA tensor to the kernel — there is no
@@ -33,7 +40,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import mean_and_sqdev_many_ref, mean_and_sqdev_ref
 
 SOURCE = build.CSRC / "mean_sqdev.cu"
-MODES = {"mean": 0, "sync": 1, "delta": 2}     # Mode in csrc/mean_sqdev.cu
+MODES = {"mean": 0, "sync": 1, "delta": 2,     # Mode in csrc/mean_sqdev.cu
+         "sync_to": 3, "delta_to": 4}
+GIVEN_MEAN = ("sync_to", "delta_to")          # modes that read ``mean``
+NO_OUT = ("sync", "sync_to")                  # modes that write W alone
 SMS = 132              # the H100's streaming multiprocessors
 BLOCKS_PER_SM = 4      # blocks of the persistent grid on each SM
 
@@ -43,7 +53,7 @@ def _library() -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return build.load(SOURCE, {
         "repro_mean_sqdev_many_f32": (p, p, i32, i64, i32, i32, i64, p, p,
-                                      p, p, i32, p),
+                                      ctypes.c_float, p, p, p, i32, p),
         "repro_mean_sqdev_f32": (p, p, p, p, p, i32, i64, i32, i64, i64, i32,
                                  p)})
 
@@ -88,9 +98,10 @@ class TilePlan(NamedTuple):
         return leaf, start, min(start + self.tile_cols, self.cols[leaf])
 
     def out_numel(self, mode: str) -> int:
-        """Elements of the output buffer of ``mode`` (0 for the sync)."""
+        """Elements of the output buffer of ``mode`` (0 for the syncs)."""
         n = self.out_off[-1] + _round4(self.cols[-1])
-        return {"mean": n, "sync": 0, "delta": self.R * n}[mode]
+        return {"mean": n, "sync": 0, "delta": self.R * n, "sync_to": 0,
+                "delta_to": self.R * n}[mode]
 
 
 @functools.lru_cache(maxsize=64)
@@ -154,8 +165,9 @@ def _plan_of(leaves: Sequence[torch.Tensor]) -> TilePlan:
 
 
 def new_out(leaves: Sequence[torch.Tensor], mode: str) -> torch.Tensor:
-    """A flat f32 output buffer for ``mode`` ("mean" or "delta") on the
-    leaves' device."""
+    """A flat f32 output buffer for ``mode`` ("mean", "delta" or
+    "delta_to") on the leaves' device; a "mean" buffer is also the given
+    mean of the ``_to`` modes."""
     return torch.empty(_plan_of(leaves).out_numel(mode), dtype=torch.float32,
                        device=leaves[0].device)
 
@@ -165,10 +177,11 @@ def out_views(out: torch.Tensor, leaves: Sequence[torch.Tensor],
     """Each leaf's part of ``out``: its mean (the leaf's shape without the
     replica axis) or its delta (the leaf's shape)."""
     plan = _plan_of(leaves)
-    scale = plan.R if mode == "delta" else 1
+    delta = mode in ("delta", "delta_to")
+    scale = plan.R if delta else 1
     views = []
     for x, off, n in zip(leaves, plan.out_off, plan.cols):
-        shape = x.shape if mode == "delta" else x.shape[1:]
+        shape = x.shape if delta else x.shape[1:]
         views.append(out[scale * off:scale * (off + n)].view(shape))
     return views
 
@@ -211,16 +224,30 @@ def _device_table(leaves: Sequence[torch.Tensor]
     return entry
 
 
+def _check_buffer(buf: Optional[torch.Tensor], n: int, device,
+                  what: str) -> None:
+    if buf is not None and (
+            buf.dtype != torch.float32 or buf.device != device
+            or not buf.is_contiguous() or buf.numel() != n
+            or buf.data_ptr() % 16):
+        raise ValueError(f"{what} must be a contiguous, 16-byte aligned f32 "
+                         f"buffer of {n} elements on {device}")
+
+
 def mean_and_sqdev_many(leaves: Sequence[torch.Tensor], mode: str = "sync",
-                        out: Optional[torch.Tensor] = None
+                        out: Optional[torch.Tensor] = None,
+                        mean: Optional[torch.Tensor] = None,
+                        divisor: int = 1
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pass over every leaf of a stacked-replica tree (f32, contiguous,
     one device, one R).  Returns (sq, S_k): each leaf's Σ_i ||mean −
     w_i||² as an (L,) f32 tensor, and (Σ_l sq_l) / R as an f32 scalar.
     ``mode`` "sync" writes the mean into every replica of each leaf;
     "mean" and "delta" write into ``out``, a flat f32 buffer from
-    ``new_out`` (each leaf's part given by ``out_views``).  On the card:
-    one launch, bitwise repeatable."""
+    ``new_out`` (each leaf's part given by ``out_views``).  "sync_to" and
+    "delta_to" take the mean from ``mean``, a "mean" buffer, divided by
+    ``divisor`` (a true division), instead.  On the card: one launch,
+    bitwise repeatable."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
     leaves = list(leaves)
@@ -232,19 +259,24 @@ def mean_and_sqdev_many(leaves: Sequence[torch.Tensor], mode: str = "sync",
     else:
         _check_leaves(leaves)
         plan = _plan_of(leaves)
-    if (out is None) != (mode == "sync"):
+    if (out is None) != (mode in NO_OUT):
         raise ValueError(f"mode {mode!r} takes an out buffer (new_out) if "
-                         f"and only if it is not the sync")
-    if out is not None and (
-            out.dtype != torch.float32 or out.device != device
-            or not out.is_contiguous() or out.numel() != plan.out_numel(mode)
-            or out.data_ptr() % 16):
-        raise ValueError(f"out must be a contiguous, 16-byte aligned f32 "
-                         f"buffer of {plan.out_numel(mode)} elements on "
-                         f"{device}")
+                         f"and only if it is not a sync")
+    if (mean is None) == (mode in GIVEN_MEAN):
+        raise ValueError(f"mode {mode!r} takes a mean buffer (new_out(..., "
+                         f"'mean')) if and only if it is one of "
+                         f"{GIVEN_MEAN}")
+    _check_buffer(out, plan.out_numel(mode), device, "out")
+    _check_buffer(mean, plan.out_numel("mean"), device, "mean")
+    if divisor != 1 and mode not in GIVEN_MEAN or not divisor >= 1:
+        raise ValueError(f"divisor {divisor} needs a mode of {GIVEN_MEAN} "
+                         f"and must be at least 1")
     if device.type == "cpu":
         return mean_and_sqdev_many_ref(
-            leaves, mode, None if out is None else out_views(out, leaves, mode))
+            leaves, mode,
+            None if out is None else out_views(out, leaves, mode),
+            None if mean is None else out_views(mean, leaves, "mean"),
+            divisor)
     L = len(leaves)
     partials = torch.empty(plan.n_tiles, dtype=torch.float32, device=device)
     res = torch.empty(L + 1, dtype=torch.float32, device=device)
@@ -252,7 +284,9 @@ def mean_and_sqdev_many(leaves: Sequence[torch.Tensor], mode: str = "sync",
         err = _library().repro_mean_sqdev_many_f32(
             table.data_ptr(), tiles.data_ptr(), L, plan.n_tiles, plan.R,
             MODES[mode], plan.tile_cols,
-            None if out is None else out.data_ptr(), partials.data_ptr(),
+            None if out is None else out.data_ptr(),
+            None if mean is None else mean.data_ptr(), float(divisor),
+            partials.data_ptr(),
             res.data_ptr(), res.data_ptr() + 4 * L,
             grid_blocks(plan.n_tiles),
             torch.cuda.current_stream(device).cuda_stream)

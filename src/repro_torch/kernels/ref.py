@@ -44,26 +44,41 @@ def mean_and_sqdev_ref(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     for x in wf[1:]:
         mean += x
     mean /= wf.new_tensor(float(wf.shape[0]))   # a true division on the card
-    sq = (wf - mean[None]).square().sum()
-    return mean.reshape(w.shape[1:]), sq
+    return mean.reshape(w.shape[1:]), sqdev_ref(w, mean)
+
+
+def sqdev_ref(w: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+    """Σ_i ||mean − w_i||² in f32 of w: (R, ...) against a mean of w's
+    replica shape (or flat)."""
+    wf = w.reshape(w.shape[0], -1).to(torch.float32)
+    return (wf - mean.reshape(-1)[None]).square().sum()
 
 
 def mean_and_sqdev_many_ref(leaves: Sequence[torch.Tensor], mode: str,
-                            out: Optional[Sequence[torch.Tensor]] = None
+                            out: Optional[Sequence[torch.Tensor]] = None,
+                            mean: Optional[Sequence[torch.Tensor]] = None,
+                            divisor: int = 1
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``mean_and_sqdev_ref`` per leaf, then the mode's write: "mean" the
     mean into ``out[l]``, "sync" the mean into every replica of the leaf,
-    "delta" ``mean − w`` into ``out[l]`` (the leaf's shape).  Returns
-    (each leaf's sq stacked, Σ_l sq_l / R summed in leaf order)."""
+    "delta" ``mean − w`` into ``out[l]`` (the leaf's shape).  "sync_to"
+    and "delta_to" take ``mean[l] / divisor`` (a true division) as the
+    leaf's mean and write as "sync" and "delta" do (``out[l]`` may be the
+    leaf itself).  Returns (each leaf's sq stacked, Σ_l sq_l / R summed in
+    leaf order)."""
     sks = []
     for i, x in enumerate(leaves):
-        mean, sk = mean_and_sqdev_ref(x)
-        if mode == "sync":
-            x.copy_(mean.unsqueeze(0).expand_as(x))
-        elif mode == "mean":
-            out[i].copy_(mean)
+        if mode in ("sync_to", "delta_to"):
+            m = mean[i] / mean[i].new_tensor(float(divisor))
+            sk = sqdev_ref(x, m)
         else:
-            torch.sub(mean.unsqueeze(0), x, out=out[i])
+            m, sk = mean_and_sqdev_ref(x)
+        if mode in ("sync", "sync_to"):
+            x.copy_(m.unsqueeze(0).expand_as(x))
+        elif mode == "mean":
+            out[i].copy_(m)
+        else:
+            torch.sub(m.unsqueeze(0), x, out=out[i])
         sks.append(sk)
     return torch.stack(sks), sum(sks) / leaves[0].shape[0]
 

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
         --method adpsgd --steps 200 --replicas 4 --backend vmap
     PYTHONPATH=src python -m repro_torch.launch.train --method qsgd_periodic
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.train --backend mesh ...
 
 Runs on the card; ``--device cpu`` runs on the CPU.  ``--method`` offers
 every strategy of the reference, ``--backend`` the port's backends.
@@ -12,7 +14,12 @@ simulate the paper's network.  ``--ckpt DIR`` writes a final
 replica-averaged checkpoint; ``--ckpt-every N --ckpt-path DIR`` saves one
 every N steps (``--no-keep-replicas``: replica-averaged export
 checkpoints).  A run resumes through ``TrainerEngine.load_state``, as in
-the reference.  The mesh placements come with the mesh backend.
+the reference.  ``--backend mesh`` spreads the replicas over the
+processes of a ``torch.distributed.run`` launch, one GPU each (NCCL; gloo
+with ``--device cpu``), or runs one process without a launcher; every
+process prints nothing and writes nothing but the first (rank 0).
+``--placement replica_tp`` and ``--model-parallel`` above 1 are refused:
+they are the next slice of the port.
 ``--no-reduced`` keeps the published widths and ``--layers`` cuts depth.
 ``--arch`` takes every config of ``repro_torch.configs`` (the Mamba
 hybrid ``jamba-1.5-large-398b`` and ``xlstm-350m`` too).  A
@@ -34,7 +41,7 @@ import numpy as np
 from repro_torch.backends import available_backends, make_backend
 from repro_torch.checkpoint.io import save_checkpoint, strategy_state
 from repro_torch.configs import AveragingConfig, get_config, reduced
-from repro_torch.core.averaging import replica_mean
+from repro_torch.configs.base import REPLICA_TP_SLICE
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.launch.steps import make_loss_fn
 from repro_torch.models import model as M
@@ -53,6 +60,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     choices=available_strategies())
     ap.add_argument("--backend", default="vmap",
                     choices=available_backends())
+    ap.add_argument("--placement", default="replica_ddp",
+                    choices=["replica_ddp", "replica_tp"],
+                    help="what one replica is on the mesh: a whole model "
+                         "(replica_ddp); replica_tp is not ported yet")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the mesh's model axis (1: replica_ddp)")
     ap.add_argument("--sync-kernel", default="auto",
                     choices=["auto", "on", "off"],
                     help="the CUDA kernels of the syncs and the QSGD step "
@@ -111,6 +124,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                  "real|10gbps|100gbps|<x>gbps")
     if args.ckpt_every and not args.ckpt_path:
         ap.error("--ckpt-every needs --ckpt-path")
+    if args.placement != "replica_ddp" or args.model_parallel != 1:
+        raise NotImplementedError(
+            f"--placement {args.placement} --model-parallel "
+            f"{args.model_parallel}: {REPLICA_TP_SLICE}")
     return args
 
 
@@ -150,8 +167,10 @@ def build_engine(args: argparse.Namespace, callbacks=()):
         decay_steps=(args.steps // 2, 3 * args.steps // 4))
     opt = get_optimizer(run.optimizer, momentum_coef=run.momentum)
     use_kernel = {"auto": None, "on": True, "off": False}[args.sync_kernel]
+    mesh_kw = ({"placement": args.placement} if args.backend == "mesh"
+               else {})
     backend = make_backend(args.backend, use_kernel=use_kernel,
-                           device=args.device)
+                           device=args.device, **mesh_kw)
 
     data = SyntheticTokens(cfg.vocab_size, args.seq,
                            n_samples=args.replicas * args.batch * 64,
@@ -185,9 +204,24 @@ def build_engine(args: argparse.Namespace, callbacks=()):
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
     engine, cfg = build_engine(args)
+    try:
+        return report(args, engine)
+    finally:
+        engine.backend.close()
+
+
+def report(args: argparse.Namespace, engine: TrainerEngine):
+    """Run, then print the run's summary and write its outputs (on the
+    backend's writer process alone)."""
     t0 = time.time()
     hist = engine.run()
     dt = time.time() - t0
+    backend = engine.backend
+    if args.ckpt:          # collectives: every process takes part
+        final = backend.collapse(hist.final_W)
+        state = strategy_state(engine.strategy)
+    if not backend.is_writer:
+        return hist
 
     print(f"[{args.arch} / {args.method} / {args.backend}] "
           f"{args.steps} steps in {dt:.1f}s  ({engine.backend.describe()})")
@@ -206,7 +240,8 @@ def main(argv: Optional[Sequence[str]] = None):
             f"{n} {first[n]:.5f} -> {last[n]:.5f}" for n in sorted(first)))
     leaves = tree_leaves(hist.final_W)
     op = engine.strategy.sync_op()
-    per_event = op.wire_bytes(sum(x.numel() for x in leaves) // args.replicas,
+    per_event = op.wire_bytes(sum(x.numel() for x in leaves)
+                              // backend.n_local,
                               args.replicas, n_tensors=len(leaves))
     print(f"  wire: {op.name} ({op.wire.kind}, {op.wire.bits} bits) "
           f"{per_event:.3e} B/node per event x {hist.n_syncs} events")
@@ -222,9 +257,8 @@ def main(argv: Optional[Sequence[str]] = None):
               f"total={t['sim_wall_s']:.3f}s "
               f"bytes/node={t['bytes']:.3e}")
     if args.ckpt:
-        save_checkpoint(args.ckpt, replica_mean(hist.final_W),
-                        step=args.steps,
-                        controller_state=strategy_state(engine.strategy))
+        save_checkpoint(args.ckpt, final, step=args.steps,
+                        controller_state=state)
         print(f"  checkpoint -> {args.ckpt}")
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -46,6 +46,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.backends.ops import settle
 from repro_torch.core.comm_model import GBPS_10, GBPS_100, LATENCY_S, comm_time
 from repro_torch.tree import tree_leaves
 
@@ -196,8 +197,11 @@ class Clock:
         return out, None
 
     def complete_async(self, name: str, record: Optional[ProgramTiming],
-                       outputs=None) -> None:
-        """Settle an overlap op at fetch time.  Base: already paid."""
+                       outputs=None):
+        """Settle an overlap op at fetch time and return its outputs
+        (``backends.ops.settle``: a ``Deferred`` is finished here).  Base:
+        already paid."""
+        return settle(outputs)
 
     def state_dict(self) -> Dict[str, Any]:
         return {"kind": self.kind, "t": self.now()}
@@ -209,7 +213,9 @@ class Clock:
 def _wait(outputs) -> None:
     """Wait until the device has finished ``outputs``: synchronize the
     CUDA device their tensors live on.  CPU tensors are finished when the
-    program returns, so nothing is waited for."""
+    program returns, so nothing is waited for.  On a mesh over NCCL the
+    device synchronisation also covers NCCL's own streams, which the
+    program's collectives ran on, so no barrier is needed."""
     for x in tree_leaves(outputs):
         if isinstance(x, torch.Tensor):
             if x.is_cuda:
@@ -314,6 +320,7 @@ class WallClock(Clock):
 
     def complete_async(self, name, record, outputs=None):
         t0 = self.now()
+        outputs = settle(outputs)
         if outputs is not None:
             _wait(outputs)
             self.n_blocks += 1
@@ -327,6 +334,7 @@ class WallClock(Clock):
         if self._mark is not None:
             # sampled mode: keep this stall out of the next window's span
             self._mark += dt
+        return outputs
 
     def load_state_dict(self, state):
         self._base = float(state.get("t", 0.0))
@@ -395,6 +403,7 @@ class SimulatedClock(Clock):
         """Fetch: advance by the un-overlapped remainder only.  The fetch
         record shows the stall as its duration with ``comm_s=0``: the
         exchange was charged at dispatch."""
+        outputs = settle(outputs)
         wait = 0.0
         if record is not None:
             wait = max(0.0, record.t_end - self._t)
@@ -402,6 +411,7 @@ class SimulatedClock(Clock):
         self.timeline.record(ProgramTiming(
             name=f"{name}.fetch", step=self.timeline.step,
             t_start=self._t - wait, t_end=self._t))
+        return outputs
 
     def state_dict(self):
         d = super().state_dict()

@@ -15,6 +15,13 @@ routes their outputs:
                             snapshot), recorded against its snapshot step
 * ``info["inner_sync"]`` -> hierarchical inner-sync marker
 
+On a backend whose replicas are spread over processes (the mesh backend)
+every process runs this loop over its own replicas: W is its chunk, and
+``backend.local_replicas`` cuts each batch to the chunk's rows.  The
+history's scalars (loss, S_k, periods) are global, so every process keeps
+the same history; the checkpoint callback gathers the chunks
+(``backend.gather_replicas``) and the writer process alone writes them.
+
 A telemetry clock (``runtime/clock.py``) rides the backend, which wraps
 every program it lowers, and its Timeline rides the engine
 (``engine.timeline``; ``TrainHistory.timing``).  A small callback bus hangs
@@ -110,7 +117,7 @@ class VarianceProbe(Callback):
     def on_step_end(self, engine, k, metrics):
         if k % self.every == 0:
             engine.history.variances.append(
-                float(avg.parameter_variance(engine.W)))
+                float(engine.backend.parameter_variance(engine.W)))
             engine.history.variance_steps.append(k)
 
 
@@ -125,7 +132,8 @@ class PeriodicEval(Callback):
 
     def on_iteration_end(self, engine, k, metrics):
         if (k + 1) % self.every == 0:
-            ev = evaluate(self.loss_fn, engine.W, self.batches_fn())
+            ev = evaluate(self.loss_fn, engine.W, self.batches_fn(),
+                          backend=engine.backend)
             engine.history.evals.append(ev)
             engine.history.eval_steps.append(k)
 
@@ -150,13 +158,22 @@ class Checkpointer(Callback):
             self.save(engine, k + 1)
 
     def save(self, engine: "TrainerEngine", step: int) -> None:
+        """Every process calls this (the gathers are collectives); the
+        backend's writer writes."""
         from repro_torch.checkpoint.io import save_checkpoint, strategy_state
-        W = engine.W if self.keep_replicas else avg.replica_mean(engine.W)
-        opt = engine.opt_state if self.keep_replicas else None
-        save_checkpoint(self.path, W, opt_state=opt, step=step,
-                        controller_state=strategy_state(engine.strategy),
-                        clock_state=(engine.clock.state_dict()
-                                     if engine.clock else None))
+        backend = engine.backend
+        if self.keep_replicas:
+            W = backend.gather_replicas(engine.W)
+            opt = backend.gather_replicas(engine.opt_state)
+        else:
+            W, opt = backend.collapse(engine.W), None
+        state = strategy_state(engine.strategy)
+        if backend.is_writer:
+            save_checkpoint(self.path, W, opt_state=opt, step=step,
+                            controller_state=state,
+                            clock_state=(engine.clock.state_dict()
+                                         if engine.clock else None))
+        backend.barrier()
 
 
 class TrainerEngine:
@@ -215,8 +232,7 @@ class TrainerEngine:
         self.W: Optional[Pytree] = None
         self.opt_state: Optional[Pytree] = None
         if params0 is not None:
-            self.W = avg.stack_replicas(self.backend.put_params(params0),
-                                        n_replicas)
+            self.W = self.backend.stack_params(params0)
             self.opt_state = self.backend.init_opt_state(optimizer, self.W)
 
     def load_state(self, W: Pytree, opt_state: Optional[Pytree] = None,
@@ -238,7 +254,8 @@ class TrainerEngine:
         from zero, so the losses are not bit-identical."""
         got = [tuple(x.shape) for x in tree_leaves(W)]
         if self.W is not None:
-            want = [tuple(x.shape) for x in tree_leaves(self.W)]
+            want = [(self._n_replicas,) + tuple(x.shape[1:])
+                    for x in tree_leaves(self.W)]
         else:
             # no params0: every leaf must still lead with the replica axis
             # this engine was built for
@@ -250,9 +267,11 @@ class TrainerEngine:
                 f"checkpoints are export-only): {got[:1]} vs {want[:1]}")
         if self.W is not None:
             W = tree_unflatten(self.W, tree_leaves(W))
+        W = self.backend.local_replicas(W)
         self.W = None                  # free the old buffers first
         self.W = self.backend.put_params(self.backend.own(W))
         if opt_state is not None:
+            opt_state = self.backend.local_replicas(opt_state)
             if self.opt_state is not None:
                 shapes = [[tuple(x.shape) for x in tree_leaves(t)]
                           for t in (opt_state, self.opt_state)]
@@ -312,7 +331,7 @@ class TrainerEngine:
         for k in range(start_step, stop):
             lr = self.lr_fn(k)
             hist.lrs.append(lr)
-            batch = self.data_fn(k)
+            batch = self.backend.local_replicas(self.data_fn(k))
             step_key = prng.fold_in(self._base_key, k)
             step_info: Dict[str, Any] = {}
             if tl is not None:
@@ -366,9 +385,11 @@ class TrainerEngine:
 
 
 @torch.no_grad()
-def evaluate(loss_fn, W: Pytree, batches) -> Dict[str, float]:
-    """Evaluate the replica-averaged model."""
-    params = avg.replica_mean(W)
+def evaluate(loss_fn, W: Pytree, batches,
+             backend: Optional[ExecutionBackend] = None) -> Dict[str, float]:
+    """Evaluate the replica-averaged model (the mean over every replica
+    through ``backend.collapse`` where one is given)."""
+    params = avg.replica_mean(W) if backend is None else backend.collapse(W)
     tot: Dict[str, float] = {}
     n = 0
     for b in batches:

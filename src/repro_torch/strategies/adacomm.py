@@ -38,3 +38,15 @@ class AdaCommStrategy(PeriodicAveragingStrategy):
 
     def observe_loss(self, k: int, loss: float) -> None:
         self.controller.observe_loss(k, loss)
+
+    def bind_clock(self, clock) -> None:
+        # every process must pick the same periods: a wall clock reads
+        # differently in each
+        if (self.cfg.adacomm_mode == "time" and clock is not None
+                and clock.kind == "wall" and self.backend is not None
+                and self.backend.world > 1):
+            raise NotImplementedError(
+                "adacomm_mode='time' on a wall clock over several processes "
+                "would let each process choose its own schedule; use a "
+                "SimulatedClock (--net <x>gbps) or one process")
+        super().bind_clock(clock)

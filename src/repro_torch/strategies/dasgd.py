@@ -29,9 +29,13 @@ fetched pair live, and exports the correction and its probe under
 applies the identical correction at the identical iteration and reports
 the identical S_k.  The correction is ``mean_delta``'s own f32 buffer,
 which no program writes (the local steps write W; ``sync_apply`` reads
-it), so the state holds it as it is.  A run segment that ends between a
-snapshot and its apply has counted the communication event but not yet
-recorded its probe: the probe belongs to the segment that fetches it.
+it), so the state holds it as it is; on the mesh backend, whose in-flight
+op holds the all-reduce's work handle until it is fetched, the state
+holds every process's rows (``backend.gather_replicas``) and a restore
+keeps this process's (``backend.local_replicas``).  A run segment that
+ends between a snapshot and its apply has counted the communication event
+but not yet recorded its probe: the probe belongs to the segment that
+fetches it.
 """
 from __future__ import annotations
 
@@ -105,7 +109,8 @@ class DaSGDStrategy(PeriodicAveragingStrategy):
             self._pending = pending        # keep the fetched pair live
             delta, s_k = pending
             arrays = d.setdefault("_arrays", {})
-            arrays["pending_delta"] = delta
+            arrays["pending_delta"] = (delta if self.backend is None else
+                                       self.backend.gather_replicas(delta))
             if s_k is not None:
                 arrays["pending_s_k"] = s_k
         return d
@@ -123,7 +128,8 @@ class DaSGDStrategy(PeriodicAveragingStrategy):
             pending = arrays["pending_delta"]
             s_k = arrays.get("pending_s_k")
             if self.backend is not None:
-                pending = self.backend.put_params(self.backend.own(pending))
+                pending = self.backend.put_params(self.backend.own(
+                    self.backend.local_replicas(pending)))
                 if s_k is not None:
                     s_k = self.backend.own(s_k)
             # a checkpoint taken before the probe was reported carries

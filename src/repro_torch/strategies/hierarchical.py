@@ -46,7 +46,8 @@ class HierarchicalADPSGDStrategy(PeriodicAveragingStrategy):
         built: Dict[int, Any] = {}
 
         def inner_prog(W, opt_state, batch, lr, key):
-            R = tree_leaves(W)[0].shape[0]
+            # every replica, wherever they live (W may be one process's)
+            R = backend.n_replicas or tree_leaves(W)[0].shape[0]
             g = group_cfg or backend.default_group_size() or max(1, R // 2)
             while R % g:
                 g -= 1

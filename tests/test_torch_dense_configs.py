@@ -76,8 +76,9 @@ def test_run_config_matches_reference(arch):
     {"shard_activations": False}, {"remat_policy": "dots"},
     {"vocab_parallel_embed": False}])
 def test_parallelism_plan_refuses_what_no_backend_reads(change):
-    """The port has no mesh backend: a field only that backend reads, set
-    away from its default, would be ignored, so it is refused; so is a
+    """The port's mesh backend runs ``replica_ddp`` only: a field only
+    ``replica_tp`` reads, set away from its default, would be ignored, so
+    it is refused (the message names that slice); so is a
     plan that is none of the reference's (``replica_dp``, ``fsdp`` and
     ``replica_ddp`` are data the vmap backend ignores, as the
     reference's does: ``test_torch_moe_configs.py``)."""

@@ -190,6 +190,73 @@ def _check_many(cuda, shapes, R, mode, seed):
     torch.testing.assert_close(s_k, want_s_k, rtol=1e-5, atol=0)
 
 
+def _check_given(cuda, shapes, R, mode, given, seed):
+    """The grouped kernel in "sync_to" or "delta_to", given the plain
+    means (divisor 1) or the plain sums over the rows in index order
+    (divisor R, as the mesh's all-reduced sum over its world): bitwise
+    what "sync" or "delta" write (the means into every row; mean − w,
+    here over the leaves themselves, as the mesh's DaSGD snapshot writes
+    it), each leaf's sq within rtol 1e-5 of the plain one (1e-4 past 1e8
+    elements a replica), S_k within 1e-5, bitwise repeatable, one
+    launch."""
+    from repro_torch.kernels import param_variance as pv
+    base = _tree_on(cuda, shapes, R, seed)
+    means = [torch_ref.mean_and_sqdev_ref(x)[0] for x in base]
+    want_sq, want_s_k = torch_ref.mean_and_sqdev_many_ref(
+        [x.clone() for x in base], "sync")
+    mean = pv.new_out(base, "mean")
+    for v, m, x in zip(pv.out_views(mean, base, "mean"), means, base):
+        if given == "mean":
+            v.copy_(m)
+        else:
+            v.copy_(x[0])
+            for r in range(1, R):
+                v.add_(x[r])
+    divisor = 1 if given == "mean" else R
+    runs = []
+    for _ in range(2):
+        if mode == "sync_to":
+            leaves, out = [x.clone() for x in base], None
+        else:
+            out = pv.new_out(base, mode)
+            leaves = pv.out_views(out, base, mode)
+            for v, x in zip(leaves, base):
+                v.copy_(x)
+        before = mean_and_sqdev.launches
+        sq, s_k = pv.mean_and_sqdev_many(leaves, mode, out, mean, divisor)
+        assert mean_and_sqdev.launches == before + 1
+        runs.append((leaves, sq, s_k))
+    torch.cuda.synchronize()
+    (leaves, sq, s_k), (leaves2, sq2, s_k2) = runs
+    assert torch.equal(sq, sq2) and torch.equal(s_k, s_k2)
+    for x, x2, b, m in zip(leaves, leaves2, base, means):
+        assert torch.equal(x, x2)
+        want = (m.unsqueeze(0).expand_as(b) if mode == "sync_to"
+                else m.unsqueeze(0) - b)
+        assert torch.equal(x, want)
+    tol = torch.tensor([1e-4 if np.prod(s) > 1e8 else 1e-5 for s in shapes],
+                       device=cuda)
+    assert bool(((sq - want_sq).abs() <= tol * want_sq).all())
+    torch.testing.assert_close(s_k, want_s_k, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", ["mean", "sum"])
+@pytest.mark.parametrize("mode", ["sync_to", "delta_to"])
+@pytest.mark.parametrize("R,shape", CASES)
+def test_grouped_kernel_given_mean_at_each_case(cuda, R, shape, mode, given):
+    _check_given(cuda, [shape], R, mode, given, seed=R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", ["mean", "sum"])
+@pytest.mark.parametrize("mode", ["sync_to", "delta_to"])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 8, 16])
+def test_grouped_kernel_given_mean_on_a_tree(cuda, R, mode, given):
+    shapes = [s for _, s in CASES[:4]] + [(), (7,), (2048 * 3 + 5,), (1,)]
+    _check_given(cuda, shapes, R, mode, given, seed=20 + R)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["mean", "sync", "delta"])
 @pytest.mark.parametrize("R,shape", CASES)

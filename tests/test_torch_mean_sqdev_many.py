@@ -107,6 +107,79 @@ def test_cpu_route_is_the_plain_per_leaf_route(tree, R, mode):
         assert v.shape == want.shape and torch.equal(v, want)
 
 
+@pytest.mark.parametrize("R", RS)
+@pytest.mark.parametrize("tree", list(TREES))
+@pytest.mark.parametrize("mode", ["sync_to", "delta_to"])
+def test_given_mean_modes_equal_their_own_mean_modes(tree, R, mode):
+    """Given each leaf's own mean (mode "mean"), "sync_to" and "delta_to"
+    are bitwise "sync" and "delta": the same writes, sq and S_k.  The
+    mesh backend hands them the all-reduced mean instead; "delta_to"
+    writes over its leaves (views of its out buffer), as the mesh's DaSGD
+    snapshot does."""
+    base = _tree(TREES[tree], R, seed=R)
+    mean = pv.new_out(base, "mean")
+    pv.mean_and_sqdev_many([x.clone() for x in base], "mean", mean)
+    own = "sync" if mode == "sync_to" else "delta"
+    want_leaves = [x.clone() for x in base]
+    want_out = None if own == "sync" else pv.new_out(base, own)
+    want_sq, want_s_k = pv.mean_and_sqdev_many(want_leaves, own, want_out)
+    if mode == "sync_to":
+        leaves, out = [x.clone() for x in base], None
+    else:
+        out = pv.new_out(base, mode)
+        leaves = pv.out_views(out, base, mode)
+        for v, x in zip(leaves, base):
+            v.copy_(x)
+    sq, s_k = torch_ops.param_mean_and_sqdev_many(leaves, mode, out, mean)
+    assert torch.equal(sq, want_sq) and torch.equal(s_k, want_s_k)
+    if mode == "sync_to":
+        assert all(torch.equal(x, w) for x, w in zip(leaves, want_leaves))
+    else:
+        assert all(torch.equal(v, w) for v, w in zip(
+            leaves, pv.out_views(want_out, base, own)))
+
+
+@pytest.mark.parametrize("R", RS)
+@pytest.mark.parametrize("mode", ["sync_to", "delta_to"])
+def test_given_sum_over_a_divisor_equals_the_own_mean_modes(R, mode):
+    """Given each leaf's sum over its rows in index order and the divisor
+    R (a true division), "sync_to" and "delta_to" are bitwise "sync" and
+    "delta", as given the mean with divisor 1: the mesh backend hands
+    them the all-reduced sum of its ranks' means and its world size."""
+    shapes = TREES["small"] + TREES["ragged"]
+    base = _tree(shapes, R, seed=40 + R)
+    given = pv.new_out(base, "mean")
+    for v, x in zip(pv.out_views(given, base, "mean"), base):
+        v.copy_(x[0])
+        for r in range(1, R):
+            v.add_(x[r])
+    own = "sync" if mode == "sync_to" else "delta"
+    want_leaves = [x.clone() for x in base]
+    want_out = None if own == "sync" else pv.new_out(base, own)
+    want_sq, want_s_k = pv.mean_and_sqdev_many(want_leaves, own, want_out)
+    leaves = [x.clone() for x in base]
+    out = None if mode == "sync_to" else pv.new_out(base, mode)
+    sq, s_k = torch_ops.param_mean_and_sqdev_many(leaves, mode, out, given,
+                                                  R)
+    assert torch.equal(sq, want_sq) and torch.equal(s_k, want_s_k)
+    got = leaves if out is None else pv.out_views(out, base, mode)
+    want = (want_leaves if want_out is None
+            else pv.out_views(want_out, base, own))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("mode,divisor", [("sync", 2), ("mean", 2),
+                                          ("sync_to", 0), ("delta_to", -1)])
+def test_wrapper_refuses_a_divisor_it_cannot_use(mode, divisor):
+    """A divisor other than 1 belongs to the given-mean modes, and one
+    below 1 to none."""
+    x = torch.zeros(4, 8)
+    out = None if mode in ("sync", "sync_to") else pv.new_out([x], mode)
+    mean = pv.new_out([x], "mean") if mode.endswith("_to") else None
+    with pytest.raises(ValueError, match="divisor"):
+        pv.mean_and_sqdev_many([x], mode, out, mean, divisor)
+
+
 @pytest.mark.parametrize("R", [2, 4])
 def test_sync_and_snapshot_match_the_old_cpu_routes(R):
     """``sync_replicas(use_kernel=True)`` and DaSGD's snapshot with the
@@ -169,14 +242,23 @@ def _bad(case):
         "out_size": ([x], "mean", torch.zeros(9), ValueError),
         "out_dtype": ([x], "delta", torch.zeros(32, dtype=torch.float64),
                       ValueError),
+        "no_mean": ([x], "sync_to", None, ValueError),
     }[case]
 
 
 @pytest.mark.parametrize("case", ["no_leaves", "dtype", "bf16", "strided",
                                   "replica_axes", "scalar", "empty",
                                   "devices", "mode", "no_out", "sync_out",
-                                  "out_size", "out_dtype"])
+                                  "out_size", "out_dtype", "no_mean"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     leaves, mode, out, err = _bad(case)
     with pytest.raises(err):
         pv.mean_and_sqdev_many(leaves, mode, out)
+
+
+@pytest.mark.parametrize("mode", ["mean", "sync", "delta"])
+def test_wrapper_refuses_a_mean_for_the_modes_that_take_none(mode):
+    x = torch.zeros(4, 8)
+    out = None if mode == "sync" else pv.new_out([x], mode)
+    with pytest.raises(ValueError, match="mean buffer"):
+        pv.mean_and_sqdev_many([x], mode, out, pv.new_out([x], "mean"))
