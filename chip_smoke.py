@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --tp-multi-gpu   # a host of 2 or 4 GPUs
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``, one ``nvcc`` per source, all started together), holds each
@@ -64,8 +65,17 @@ mean + sqdev kernel in its modes mean and sync_to (and delta_to for
 DaSGD; both divide the all-reduced sum by the world size as they read
 it), and the mesh sync timed beside the vmap one; then the training
 CLI runs 4 steps under ``torch.distributed.run --standalone
---nproc-per-node 1``.  The process group is destroyed before the last
-two lines.  Each path is driven with the launch counts set to 0 just
+--nproc-per-node 1``.  Phase 15b reruns phase 3's ADPSGD, 3b's
+qsgd_periodic and 7's dasgd under the mesh's ``replica_tp`` placement
+with a model axis of 1 (every replica's forward and backward on
+DTensors over a one-rank model mesh): each history and final W bitwise
+the vmap run's, the collectives of every program by group (data / model
+/ world) and DTensor's own in the first step, the local step's and the
+sync's ms beside phase 15's and vmap's, the peak memory, the functions
+run on whole operands; then the CLI with the placement, and (on a host
+of 2 GPUs or more; ``--tp-multi-gpu`` runs this part alone) the CLI with
+a model axis of 2 held to phase 3's run.  The process group is
+destroyed before the last two lines.  Each path is driven with the launch counts set to 0 just
 before it and read just after.
 
 Phases: 1 environment and build (no kernel may spill registers; TF32
@@ -78,7 +88,7 @@ the CNN experiment; 9 checkpoint / resume; 10 the dense configs served;
 11 the MoE family trained; 12 the MoE family served; 13a-c the
 vision-language and audio models trained and served; 14a-c the Mamba
 hybrid and xLSTM families trained and served; 15 the mesh backend
-(after 9).  Each phase prints its seconds.  Any failed check exits non-zero.
+(after 9), 15b its ``replica_tp`` placement.  Each phase prints its seconds.  Any failed check exits non-zero.
 The card's ``nvidia-smi`` name and power limit stand on the line before
 the ``{"kernels": [...]}`` line, and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -1845,7 +1855,8 @@ def on_mesh(argv, steps=None):
 
 class Collectives:
     """Every ``torch.distributed`` collective call while installed, with
-    its op and the bytes of the tensor handed to it, in ``calls``."""
+    its op and the bytes of the tensor handed to it, in ``calls``, and the
+    group it was given in ``groups``."""
 
     OPS = ("all_reduce", "all_gather", "all_gather_into_tensor",
            "broadcast", "reduce_scatter", "reduce", "gather", "scatter",
@@ -1854,7 +1865,7 @@ class Collectives:
     def __init__(self):
         import torch
         import torch.distributed as dist
-        self.calls, self._orig = [], {}
+        self.calls, self.groups, self._orig = [], [], {}
         for op in self.OPS:
             fn = getattr(dist, op, None)
             if fn is None:
@@ -1862,9 +1873,11 @@ class Collectives:
             self._orig[op] = fn
 
             def call(*a, _op=op, _fn=fn, **kw):
-                t = a[1] if _op == "all_gather" else (a[0] if a else None)
+                t = (a[1] if _op in ("all_gather", "all_gather_into_tensor")
+                     else (a[0] if a else None))
                 self.calls.append((_op, t.numel() * t.element_size()
                                    if isinstance(t, torch.Tensor) else 0))
+                self.groups.append(kw.get("group"))
                 return _fn(*a, **kw)
             setattr(dist, op, call)
 
@@ -1874,14 +1887,29 @@ class Collectives:
             setattr(dist, op, fn)
 
 
-def mesh_run(label: str, argv, ref: dict) -> dict:
+def group_of(mesh, group) -> str:
+    """'data', 'model' or 'world' for a group of ``mesh`` (None: the
+    world; at model size 1 the data group is the world, named 'data')."""
+    import torch.distributed as dist
+    if group is None or group is dist.group.WORLD:
+        group = mesh.group
+    if group is mesh.data_group:
+        return "data"
+    if group is mesh.model_group:
+        return "model"
+    return "world" if group is mesh.group else "sub"
+
+
+def mesh_run(label: str, argv, ref: dict, tp: bool = False) -> dict:
     """``argv`` on the mesh through ``drive``, each program's collective
-    calls recorded (the metrics mean apart); its history and final W held
-    to the vmap run ``ref`` bit for bit."""
+    calls recorded with their groups (the metrics mean apart); its
+    history and final W held to the vmap run ``ref`` bit for bit.  Under
+    ``replica_tp`` (``tp``) the first local step's DTensor collectives
+    are counted too (``CommDebugMode``)."""
     import torch
     from repro_torch.tree import tree_leaves
 
-    log = []
+    log, dtensor = [], []
     counter = Collectives()
 
     def wrap(engine, name, fn):
@@ -1897,9 +1925,20 @@ def mesh_run(label: str, argv, ref: dict) -> dict:
 
         def run(*a):
             before, tag = len(counter.calls), backend._tagged[0]
-            out = fn(*a)
+            if tp and name == "step" and not dtensor:
+                # the first step alone: the mode wraps every op
+                from torch.distributed.tensor.debug import CommDebugMode
+                with CommDebugMode() as comms:
+                    out = fn(*a)
+                dtensor.append({str(k): v for k, v in
+                                comms.get_comm_counts().items()
+                                if "functional" in str(k)})
+            else:
+                out = fn(*a)
             log.append((name, counter.calls[before:],
-                        backend._tagged[0] - tag))
+                        backend._tagged[0] - tag,
+                        [group_of(backend.mesh, g)
+                         for g in counter.groups[before:]]))
             return out
         return run
 
@@ -1918,31 +1957,102 @@ def mesh_run(label: str, argv, ref: dict) -> dict:
           f"run's: {same}")
     check(all(same.values()), f"{label}: the mesh run differs from vmap: "
                               f"{same}")
-    by_program = {}
-    for name, calls, tagged in log:
+    by_program, by_group = {}, {}
+    for name, calls, tagged, groups in log:
         by_program.setdefault(name, []).append(
             ([op for op, _ in calls], [n for _, n in calls], tagged))
+        by_group.setdefault(name, set()).add(tuple(
+            f"{op}@{g}" for (op, _), g in zip(calls, groups)))
     for name, rows in by_program.items():
         print(f"  {label} collectives per {name} call: "
-              f"{sorted({(tuple(ops), tagged) for ops, _, tagged in rows})}")
-    steps = by_program.get("step", [])
+              f"{sorted({(tuple(ops), tagged) for ops, _, tagged in rows})}"
+              f"; by group: {sorted(by_group[name])}")
+    steps = [(calls, tagged, groups) for name, calls, tagged, groups in log
+             if name == "step"]
+    n_local = engine.backend.n_local
+    # the step: its metrics mean (data); under replica_tp each replica's
+    # gradient norm summed over the model group besides
+    want = ["all_reduce@data"] + (["all_reduce@model"] * n_local if tp
+                                  else [])
     check(len(steps) == len(hist.losses) and all(
-        ops == ["all_reduce"] and tagged == 1 and n[0] <= 64
-        for ops, n, tagged in steps),
+        tagged == 1 and sorted(f"{op}@{g}" for (op, _), g in
+                               zip(calls, groups)) == sorted(want)
+        and all(n <= 64 for _, n in calls)
+        for calls, tagged, groups in steps),
         f"{label}: a local step issued a collective besides its metrics "
-        f"mean")
+        f"mean and its model-group gradient norms")
+    if tp:
+        print(f"  {label} DTensor collectives in the first local step "
+              f"(model mesh of {engine.backend.m}): {dtensor}")
     out.update(engine=engine, hist=hist, by_program=by_program,
+               by_group={k: sorted(v) for k, v in by_group.items()},
+               dtensor_step_collectives=dtensor[:1],
                describe=engine.backend.describe())
     return out
 
 
-def mesh_cli() -> dict:
+def check_mesh_launches(label: str, run: dict, engine, hist) -> None:
+    """A mesh run's kernel launches and its syncs' collectives: the mean +
+    sqdev kernel twice a sync (modes mean and sync_to; a DaSGD snapshot
+    mean and delta_to), a quantized sync one all_gather of R_local ×
+    ``payload_bytes`` and its kernels per leaf, every other sync two
+    all-reduces; an inner sync inside the chunk none."""
+    from repro_torch.backends.ops import quantized_all_mean_op
+
+    calls, progs = run["calls"], run["by_program"]
+    n = hist.n_syncs
+    if label == "qsgd_periodic":
+        n_params = engine.backend.n_params(engine.W)
+        payload = quantized_all_mean_op(BITS).payload_bytes(
+            n_params, N_LEAVES)
+        syncs = progs["sync"]
+        check(syncs[0][0] == ["all_reduce"] * 3 and all(
+            ops == ["all_gather"]
+            and nb == [engine.backend.n_local * payload]
+            for ops, nb, _ in syncs[1:]),
+            f"quantized syncs' collectives {syncs}")
+        q = N_LEAVES * 4 * (n - 1)
+        want = {"mean_and_sqdev": 2 + N_LEAVES * (n - 1),
+                LEAVES: 2 * N_LEAVES + N_LEAVES * (n - 1),
+                "sqnorm": N_LEAVES * (n - 1), "quantize": q,
+                "dequantize": q, "flash_attention": 0}
+        run["payload_bytes"] = engine.backend.n_local * payload
+    else:
+        syncs = progs.get("sync", []) + progs.get("full_sync", [])
+        if label == "dasgd":
+            check(all(ops == ["all_reduce"] for ops, _, _ in
+                      progs["sync"] + progs["sync_apply"]),
+                  "a DaSGD snapshot or apply issued other than one "
+                  "all-reduce")
+            k = 2 * calls.get("full_sync", 0) + calls["sync"] \
+                + calls["sync_apply"]
+        else:
+            check(all(ops == ["all_reduce", "all_reduce"]
+                      for ops, _, _ in syncs),
+                  f"{label}: a sync issued other than 2 "
+                  f"all-reduces")
+            k = 2 * calls["sync"]
+            check(all(ops == [] for ops, _, _ in
+                      progs.get("inner_sync", [])),
+                  "an inner sync inside the chunk issued a "
+                  "collective")
+        want = dict(dict.fromkeys(COUNTS, 0), mean_and_sqdev=k,
+                    **{LEAVES: N_LEAVES * k})
+    check(run["launches"] == want,
+          f"{label}: launches {run['launches']} != {want}")
+
+
+def mesh_cli(extra=(), nproc: int = 1, steps: int = 4, out=None) -> dict:
     """The training CLI under ``torch.distributed.run --standalone
-    --nproc-per-node 1``: phase 3's arguments on the mesh, 4 steps."""
+    --nproc-per-node nproc``: phase 3's arguments on the mesh, ``steps``
+    steps, ``extra`` flags (the placement), the history to ``out``."""
     import os
-    argv = on_mesh(MAIN_ARGV, steps=4)
+    argv = on_mesh(MAIN_ARGV, steps=steps) + list(extra)
+    if out is not None:
+        argv += ["--out", str(out)]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "1", "-m", "repro_torch.launch.train", *argv]
+           "--nproc-per-node", str(nproc), "-m", "repro_torch.launch.train",
+           *argv]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     res = subprocess.run(cmd, env=env, cwd=str(ROOT), capture_output=True,
@@ -1957,7 +2067,11 @@ def mesh_cli() -> dict:
                                f"failed:\n{res.stderr[-3000:]}")
     check(any("'backend': 'mesh'" in ln and "'process_group': 'nccl'" in ln
               for ln in lines), "the CLI did not print the mesh's describe()")
-    return {"seconds": dt, "exit": res.returncode}
+    if "--placement" in extra:
+        placement = extra[list(extra).index("--placement") + 1]
+        check(any(f"'placement': '{placement}'" in ln for ln in lines),
+              f"the CLI did not run placement {placement}")
+    return {"seconds": dt, "exit": res.returncode, "lines": lines}
 
 
 def phase_mesh(refs: dict) -> dict:
@@ -1976,9 +2090,7 @@ def phase_mesh(refs: dict) -> dict:
     import torch
     import torch.distributed as dist
     from repro_torch.backends import make_backend
-    from repro_torch.backends.ops import quantized_all_mean_op
     from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.tree import tree_leaves
 
     t0 = time.perf_counter()
     mesh_mod.init_group(torch.device("cuda", 0))
@@ -1993,48 +2105,7 @@ def phase_mesh(refs: dict) -> dict:
                             ("hier_adpsgd", HIER_ARGV)):
             run = mesh_run(label, on_mesh(argv), refs[label])
             engine, hist = run.pop("engine"), run.pop("hist")
-            calls, progs = run["calls"], run["by_program"]
-            n = hist.n_syncs
-            if label == "qsgd_periodic":
-                n_params = sum(x.numel() for x in tree_leaves(engine.W)) \
-                    // engine.backend.n_local
-                payload = quantized_all_mean_op(BITS).payload_bytes(
-                    n_params, N_LEAVES)
-                syncs = progs["sync"]
-                check(syncs[0][0] == ["all_reduce"] * 3 and all(
-                    ops == ["all_gather"]
-                    and nb == [engine.backend.n_local * payload]
-                    for ops, nb, _ in syncs[1:]),
-                    f"quantized syncs' collectives {syncs}")
-                q = N_LEAVES * 4 * (n - 1)
-                want = {"mean_and_sqdev": 2 + N_LEAVES * (n - 1),
-                        LEAVES: 2 * N_LEAVES + N_LEAVES * (n - 1),
-                        "sqnorm": N_LEAVES * (n - 1), "quantize": q,
-                        "dequantize": q, "flash_attention": 0}
-                run["payload_bytes"] = engine.backend.n_local * payload
-            else:
-                syncs = progs.get("sync", []) + progs.get("full_sync", [])
-                if label == "dasgd":
-                    check(all(ops == ["all_reduce"] for ops, _, _ in
-                              progs["sync"] + progs["sync_apply"]),
-                          "a DaSGD snapshot or apply issued other than one "
-                          "all-reduce")
-                    k = 2 * calls.get("full_sync", 0) + calls["sync"] \
-                        + calls["sync_apply"]
-                else:
-                    check(all(ops == ["all_reduce", "all_reduce"]
-                              for ops, _, _ in syncs),
-                          f"{label}: a sync issued other than 2 "
-                          f"all-reduces")
-                    k = 2 * calls["sync"]
-                    check(all(ops == [] for ops, _, _ in
-                              progs.get("inner_sync", [])),
-                          "an inner sync inside the chunk issued a "
-                          "collective")
-                want = dict(dict.fromkeys(COUNTS, 0), mean_and_sqdev=k,
-                            **{LEAVES: N_LEAVES * k})
-            check(run["launches"] == want,
-                  f"{label}: launches {run['launches']} != {want}")
+            check_mesh_launches(label, run, engine, hist)
             for key in COUNTS:
                 out["launches"][key] += run["launches"][key]
             if label == "adpsgd":
@@ -2043,7 +2114,7 @@ def phase_mesh(refs: dict) -> dict:
                                               "launches", "describe")}
             out[label]["collectives"] = {
                 name: sorted({(tuple(ops), tagged) for ops, _, tagged in rows})
-                for name, rows in progs.items()}
+                for name, rows in run["by_program"].items()}
             print(f"  {label} mesh: sync ms median "
                   f"{run['ms'].get('sync')!r} (vmap "
                   f"{refs[label]['ms'].get('sync')!r}); peak "
@@ -2072,6 +2143,115 @@ def phase_mesh(refs: dict) -> dict:
         dist.destroy_process_group()
     release()
     out["cli"] = mesh_cli()
+    return out
+
+
+TP_FLAGS = ["--placement", "replica_tp", "--model-parallel"]
+
+
+def phase_mesh_tp(refs: dict, ddp: dict) -> dict:
+    """The mesh's ``replica_tp`` placement over NCCL at world 1 (one GPU:
+    a model axis of 1, every replica's forward and backward on DTensors
+    over a one-rank model mesh): phase 3's ADPSGD, phase 3b's
+    qsgd_periodic and phase 7's dasgd with ``--placement replica_tp
+    --model-parallel 1``, each history and final W bitwise the vmap run's
+    (``refs``), the collective calls of every program by group (data /
+    model / world) and the DTensor collectives of a local step, the local
+    step's and the sync's ms beside ``replica_ddp``'s (phase 15, ``ddp``)
+    and vmap's, the peak memory; then the CLI under the launcher with
+    ``--placement replica_tp``, and, on a host of two GPUs or more, the
+    CLI on two ranks of one replica (``tp_multi_gpu``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+
+    mesh_mod.init_group(torch.device("cuda", 0))
+    out = {"launches": dict.fromkeys(COUNTS, 0)}
+    try:
+        for label, argv in (("adpsgd", MAIN_ARGV),
+                            ("qsgd_periodic", QSGD_PERIODIC_ARGV),
+                            ("dasgd", DASGD_ARGV)):
+            run = mesh_run(label, on_mesh(argv) + TP_FLAGS + ["1"],
+                           refs[label], tp=True)
+            engine, hist = run.pop("engine"), run.pop("hist")
+            check(run["describe"]["placement"] == "replica_tp"
+                  and run["describe"]["model_parallel"] == 1,
+                  f"{label}: not the replica_tp placement: "
+                  f"{run['describe']}")
+            check_mesh_launches(label, run, engine, hist)
+            for key in COUNTS:
+                out["launches"][key] += run["launches"][key]
+            ms = {"tp": run["ms"], "ddp": ddp[label]["ms"],
+                  "vmap": refs[label]["ms"]}
+            whole = dict(engine.backend.whole)
+            print(f"  {label} replica_tp: torch functions run on whole "
+                  f"operands (DTensor cannot shard them), calls: {whole}")
+            out[label] = {"ms": ms, "peak_bytes": run["peak_bytes"],
+                          "whole": whole,
+                          "ddp_peak_bytes": ddp[label]["peak_bytes"],
+                          "n_syncs": run["n_syncs"],
+                          "launches": run["launches"],
+                          "by_group": run["by_group"],
+                          "dtensor_step_collectives":
+                              run["dtensor_step_collectives"]}
+            print(f"  {label} replica_tp: local step ms median "
+                  f"{ms['tp'].get('step')!r} (replica_ddp "
+                  f"{ms['ddp'].get('step')!r}, vmap "
+                  f"{ms['vmap'].get('step')!r}); sync ms median "
+                  f"{ms['tp'].get('sync')!r} (replica_ddp "
+                  f"{ms['ddp'].get('sync')!r}, vmap "
+                  f"{ms['vmap'].get('sync')!r}); peak {run['peak_bytes']} B "
+                  f"(replica_ddp {ddp[label]['peak_bytes']} B)")
+            del engine, hist, run
+            release()
+    finally:
+        dist.destroy_process_group()
+    release()
+    out["cli"] = mesh_cli(TP_FLAGS + ["1"])
+    out["multi_gpu"] = tp_multi_gpu(refs["adpsgd"])
+    return out
+
+
+def tp_multi_gpu(ref: dict, steps: int = 16) -> dict:
+    """The CLI on two GPUs as one replica (``--nproc-per-node 2
+    --model-parallel 2``), and on four as two replicas of two GPUs where
+    the host has them, each held to the vmap run ``ref`` (phase 3): the
+    same sync schedule, losses rtol 5e-4, S_k rtol 2e-3 (the reference's
+    family tolerances for ``replica_tp``); each rank's parameter bytes as
+    the CLI prints them.  On one GPU it says why it did not run."""
+    import tempfile
+    import numpy as np
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"  multi-GPU replica_tp: not run: this host shows {n} GPU "
+              f"(NCCL takes one rank a GPU; the model axis of 2 needs 2)")
+        return {"ran": False, "gpus": n}
+    out = {"ran": True, "gpus": n}
+    for nproc in (2, 4) if n >= 4 else (2,):
+        path = Path(tempfile.mkdtemp()) / "hist.json"
+        res = mesh_cli(TP_FLAGS + ["2"], nproc=nproc, steps=steps, out=path)
+        got = json.loads(path.read_text())
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   ref["losses"])]
+        rel_s = [abs(a - b) / abs(b) for a, b in zip(got["s_k"], ref["s_k"])]
+        run_s = [float(m.group(1)) for ln in res["lines"] for m in
+                 [re.search(rf"{steps} steps in ([\d.]+)s", ln)] if m]
+        row = {"seconds": res["seconds"], "run_s": run_s,
+               "sync_steps": got["sync_steps"],
+               "max_loss_rel": max(rel), "max_s_k_rel": max(rel_s),
+               "bytes": [ln for ln in res["lines"] if "bytes by rank" in ln]}
+        print(f"  multi-GPU replica_tp, {nproc} ranks, model axis 2: "
+              f"{row}")
+        check(got["sync_steps"] == ref["sync_steps"]
+              and got["periods"] == ref["period_history"],
+              f"{nproc} ranks: the sync schedule differs from vmap's")
+        check(np.allclose(got["losses"], ref["losses"], rtol=5e-4,
+                          atol=1e-5)
+              and np.allclose(got["s_k"], ref["s_k"], rtol=2e-3, atol=1e-5),
+              f"{nproc} ranks: losses or S_k beyond the tolerance: {row}")
+        out[nproc] = row
     return out
 
 
@@ -3088,11 +3268,18 @@ def main() -> int:
     done("9")
     print(f"phase 15: the mesh backend over NCCL (world 1), OLMo-1B full "
           f"width, 4 layers, R=4, against phases 3, 3b and 7  card: {card}")
-    mesh = phase_mesh({"adpsgd": main_ref, "qsgd_periodic": qp_ref,
-                       "dasgd": dasgd_ref, "hier_adpsgd": hier_ref})
-    del main_ref, qp_ref, dasgd_ref, hier_ref
+    refs = {"adpsgd": main_ref, "qsgd_periodic": qp_ref,
+            "dasgd": dasgd_ref, "hier_adpsgd": hier_ref}
+    mesh = phase_mesh(refs)
     release()
     done("15")
+    print(f"phase 15b: the mesh's replica_tp placement over NCCL (world 1, "
+          f"model axis 1, DTensor steps), OLMo-1B full width, 4 layers, "
+          f"R=4, against phases 3, 3b, 7 and 15  card: {card}")
+    mesh_tp = phase_mesh_tp(refs, mesh)
+    del main_ref, qp_ref, dasgd_ref, hier_ref, refs
+    release()
+    done("15b")
     print(f"phase 10: serving MiniCPM-2B, GLM4-9B, Qwen2.5-14B at full width "
           f"and depth  card: {card}")
     dense = phase_dense_serving()
@@ -3139,7 +3326,8 @@ def main() -> int:
                  deepseek_training=deepseek, moe_serving=moe_serving,
                  qwen_vl_training=qwen_vl, whisper_training=whisper,
                  vlm_audio_serving=vlm_audio_serving, xlstm_training=xlstm,
-                 jamba_training=jamba, ssm_serving=ssm_serving, mesh=mesh)
+                 jamba_training=jamba, ssm_serving=ssm_serving, mesh=mesh,
+                 mesh_tp=mesh_tp)
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in COUNTS}
     print("launches by path: " + json.dumps(
@@ -3231,6 +3419,8 @@ def main() -> int:
                 if k != "launches"} for arch in SSM_SERVE}))
     print("summary: mesh " + json.dumps(
         {k: v for k, v in mesh.items() if k != "launches"}, default=str))
+    print("summary: mesh replica_tp " + json.dumps(
+        {k: v for k, v in mesh_tp.items() if k != "launches"}, default=str))
     print("summary: phase seconds " + json.dumps(phase_s)
           + f" total {sum(phase_s.values()):.1f}")
     print("summary: clock " + json.dumps(
@@ -3246,5 +3436,44 @@ def main() -> int:
     return 0
 
 
+def main_tp_multi_gpu() -> int:
+    """``python3 chip_smoke.py --tp-multi-gpu`` on a host of two GPUs or
+    more: the kernels built, phase 3's ADPSGD run on GPU 0 as the vmap
+    reference, then ``tp_multi_gpu`` (the CLI on 2 ranks, model axis 2,
+    and on 4 ranks, data 2 × model 2, where there are 4 GPUs)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import param_variance as pv
+    from repro_torch.kernels import qsgd_quant as qq
+
+    card = card_line()
+    print(f"multi-GPU replica_tp  card: {card}; "
+          f"{torch.cuda.device_count()} GPUs, torch {torch.__version__}")
+    build.build(pv.SOURCE, qq.SOURCE, fa.SOURCE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    run = drive(MAIN_ARGV)
+    hist = run["hist"]
+    ref = {"losses": hist.losses, "sync_steps": hist.sync_steps,
+           "period_history": hist.period_history, "s_k": hist.s_k}
+    del run, hist
+    release()
+    got = tp_multi_gpu(ref)
+    check(got["ran"], "fewer than 2 GPUs")
+    print(f"  multi-GPU replica_tp: {time.perf_counter() - t0:.1f} s")
+    print("summary: multi-GPU replica_tp " + json.dumps(got, default=str))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_tp_multi_gpu() if "--tp-multi-gpu" in sys.argv[1:]
+             else main())

@@ -25,6 +25,7 @@ every replica, and each hook is the identity there.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, List, Optional, Type
 
 import numpy as np
@@ -114,9 +115,8 @@ class ExecutionBackend:
             if op.collective is not None:
                 if op.group:
                     n = int(op.group)
-                leaves = tree_leaves(args[0])
-                n_params = sum(x.numel() for x in leaves) // self.n_local
-                nbytes = op.wire_bytes(n_params, n, n_tensors=len(leaves))
+                nbytes = op.wire_bytes(self.n_params(args[0]), n,
+                                       n_tensors=len(tree_leaves(args[0])))
             if op.overlap:
                 out, rec = clock.dispatch_async(
                     op.name, fn, args, comm_bytes=nbytes,
@@ -206,6 +206,21 @@ class ExecutionBackend:
         (the checkpoint's, placement-neutral layout); the tree itself where
         this process holds them all."""
         return tree
+
+    def whole_shapes(self, tree: Pytree) -> List[tuple]:
+        """The shape of each leaf as a whole replica-stacked leaf of this
+        process's rows (a process holding shards of each replica, the
+        mesh's ``replica_tp``, has 1/m of some dims)."""
+        return [tuple(x.shape) for x in tree_leaves(tree)]
+
+    def n_params(self, tree: Pytree) -> int:
+        """Parameters of one replica in a stacked tree of this process."""
+        return sum(math.prod(s) for s in self.whole_shapes(tree)) \
+            // self.n_local
+
+    def rank_bytes(self, tree: Pytree) -> List[int]:
+        """The bytes of a tree each process holds, by rank."""
+        return [sum(x.numel() * x.element_size() for x in tree_leaves(tree))]
 
     def get(self, tree: Pytree) -> Pytree:
         """A replica-stacked tree over all R replicas, on the host."""

@@ -11,7 +11,7 @@ dry-run ``InputShape`` tables are not ported.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 
@@ -137,26 +137,23 @@ class ModelConfig:
 
 
 PLANS = ("replica_dp", "fsdp", "replica_ddp")
-REPLICA_TP_SLICE = (
-    "the port's mesh backend runs placement 'replica_ddp' (whole-model "
-    "replicas, one or more a GPU); placement 'replica_tp' (a replica "
-    "spread over a 'model' axis: --model-parallel above 1) and the fields "
-    "only it reads (shard_activations, remat_policy, vocab_parallel_embed) "
-    "are the next slice of the port, with launch/sharding.py's base_spec "
-    "rules")
+PLACEMENTS = ("replica_ddp", "replica_tp")
 
 
 @dataclass(frozen=True)
 class ParallelismPlan:
-    """How an architecture maps onto a mesh (the reference's fields:
-    ``plan`` replica_dp | fsdp | replica_ddp, ``placement`` replica_ddp |
-    replica_tp, ``remat_policy`` full | dots | none).  In the reference
-    only the mesh launch tooling reads ``plan``, never the ``vmap``
-    backend, so the port carries any of the reference's plans as data and
-    its ``vmap`` backend ignores it just the same.  The other fields are
-    read by the mesh backend alone, whose port runs the ``replica_ddp``
-    placement: until ``replica_tp`` is ported they keep their defaults,
-    and another value is refused rather than ignored."""
+    """How an architecture maps onto a mesh (the reference's fields).
+
+    ``plan`` replica_dp | fsdp | replica_ddp picks the spec rules of
+    ``launch/sharding.py`` (``base_spec``); the ``vmap`` backend ignores
+    it, as the reference's does.  ``placement`` names how the mesh
+    backend lays replicas out: ``replica_ddp`` keeps each replica a whole
+    model on its ranks, ``replica_tp`` spreads one replica over the
+    mesh's ``model`` axis.  ``vocab_parallel_embed`` is read by the spec
+    rules (the embedding shards its vocab dim, else its d_model dim).
+    ``shard_activations`` and ``remat_policy`` (full | dots | none) are
+    carried as data: no module of the reference reads them either.  A
+    plan that is none of the reference's is refused."""
 
     plan: str = "replica_dp"
     placement: str = "replica_ddp"
@@ -169,11 +166,10 @@ class ParallelismPlan:
             raise NotImplementedError(
                 f"ParallelismPlan(plan={self.plan!r}): not a plan of the "
                 f"reference's mesh backend ({', '.join(PLANS)})")
-        set_ = [f"{f.name}={getattr(self, f.name)!r}" for f in fields(self)
-                if f.name != "plan" and getattr(self, f.name) != f.default]
-        if set_:
-            raise NotImplementedError(
-                f"ParallelismPlan({', '.join(set_)}): {REPLICA_TP_SLICE}")
+        if self.placement not in PLACEMENTS:
+            raise ValueError(
+                f"ParallelismPlan(placement={self.placement!r}): the mesh "
+                f"backend's placements are {', '.join(PLACEMENTS)}")
 
 
 @dataclass(frozen=True)

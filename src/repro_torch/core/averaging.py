@@ -13,6 +13,12 @@ step loops over the R replicas, each on views of the stacked buffers, with
 ``torch.autograd.grad`` per replica — the same maths, and only one
 replica's gradients are alive at a time.  Programs update W and the
 optimizer state in place and return them.
+
+Under the mesh's ``replica_tp`` placement W holds this rank's shards of
+each replica, and the step programs take ``tp`` (``backends/tp.py``'s
+``ModelShards``): its ``value_and_grad`` runs the replica's forward and
+backward on DTensors, and its ``grad_sqnorm`` sums the gradient norm over
+the model group.
 """
 from __future__ import annotations
 
@@ -66,44 +72,55 @@ def leaf_means(leaves):
 
 
 @torch.no_grad()
-def sync_to(leaves, means, *, write: bool = True) -> torch.Tensor:
+def sync_to(leaves, means, *, write: bool = True, count=None) -> torch.Tensor:
     """The plain sync against given f32 means (one per stacked leaf, its
     replica shape): Σ_l Σ_i ||w_i − m_l||² / R_l, with each m_l written
     into every replica of its leaf when ``write``.  With each leaf's own
     mean it is the plain route of ``sync_replicas`` and
     ``parameter_variance``; the mesh backend gives it the mean over every
-    process."""
+    process.  ``count``: one bool a leaf, whether it enters the sum (a
+    leaf a model rank holds whole enters one rank's sum alone)."""
     S_k = 0
-    for x, m in zip(leaves, means):
+    for i, (x, m) in enumerate(zip(leaves, means)):
         m = m.unsqueeze(0)
-        S_k = S_k + (x.to(torch.float32) - m).square().sum() / x.shape[0]
+        if count is None or count[i]:
+            S_k = S_k + (x.to(torch.float32) - m).square().sum() / x.shape[0]
         if write:
             x.copy_(m.expand_as(x))
+    if not isinstance(S_k, torch.Tensor):          # no leaf counted
+        S_k = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     return S_k
 
 
-def value_and_grad(loss_fn: LossFn, params: Pytree, batch):
+def value_and_grad(loss_fn: LossFn, params: Pytree, batch, tp=None):
     """(loss, aux, grads) of ``loss_fn`` at ``params``; the parameters are
     taken as fresh leaves sharing their storage, so ``params`` may be views
-    of a stacked buffer."""
+    of a stacked buffer (a rank's shards of them with ``tp``)."""
     with torch.enable_grad():
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss, aux = loss_fn(live, batch)
-        grads = torch.autograd.grad(loss, tree_leaves(live))
+        if tp is None:
+            loss, aux = loss_fn(live, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(live))
+        else:
+            loss, aux, grads = tp.value_and_grad(loss_fn, live, batch)
     aux = {k: v.detach() for k, v in aux.items()}
     return loss.detach(), aux, tree_unflatten(params, list(grads))
 
 
-def make_replica_step(loss_fn: LossFn, optimizer: Optimizer):
+def make_replica_step(loss_fn: LossFn, optimizer: Optimizer, tp=None):
     """The single-replica program one_replica(params, opt_state, batch, lr)
     -> (params, opt_state, metrics), on one replica's views."""
 
     def one_replica(params, opt_state, batch, lr):
-        loss, aux, grads = value_and_grad(loss_fn, params, batch)
+        loss, aux, grads = value_and_grad(loss_fn, params, batch, tp)
         with torch.no_grad():
             params, opt_state = optimizer.update(grads, opt_state, params, lr)
-            gnorm = torch.sqrt(sum(g.to(torch.float32).square().sum()
-                                   for g in tree_leaves(grads)))
+            if tp is None:
+                sq = sum(g.to(torch.float32).square().sum()
+                         for g in tree_leaves(grads))
+            else:
+                sq = tp.grad_sqnorm(tree_leaves(grads))
+            gnorm = torch.sqrt(sq)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm, **aux}
 
     return one_replica
@@ -114,13 +131,15 @@ def _mean_metrics(per_replica):
             for k in per_replica[0]}
 
 
-def make_local_step(loss_fn: LossFn, optimizer: Optimizer):
+def make_local_step(loss_fn: LossFn, optimizer: Optimizer, tp=None):
     """Returns step(W, opt_state, batch, lr) -> (W, opt_state, metrics).
     ``batch`` leaves carry the replica axis (R, per_replica_batch, ...);
     metrics are averaged over the replicas."""
-    one_replica = make_replica_step(loss_fn, optimizer)
+    one_replica = make_replica_step(loss_fn, optimizer, tp)
 
     def step(W, opt_state, batch, lr):
+        if tp is not None:
+            tp.bind(W)
         metrics = []
         for r in range(n_replicas(W)):
             _, _, m = one_replica(replica_view(W, r),
@@ -179,7 +198,7 @@ def sync_opt_state(opt_state: Pytree) -> Pytree:
 
 
 def make_full_step(loss_fn: LossFn, optimizer: Optimizer,
-                   exchange: Optional[Exchange] = None):
+                   exchange: Optional[Exchange] = None, tp=None):
     """FULLSGD baseline: gradients are averaged across replicas every step
     (vanilla synchronous data-parallel SGD).  ``exchange`` (the mesh
     backend's) sums the replicas' gradients over the processes; without
@@ -187,10 +206,12 @@ def make_full_step(loss_fn: LossFn, optimizer: Optimizer,
 
     def step(W, opt_state, batch, lr):
         R = n_replicas(W)
+        if tp is not None:
+            tp.bind(W)
         g_sum, losses, auxs = None, [], []
         for r in range(R):
             loss, aux, grads = value_and_grad(
-                loss_fn, replica_view(W, r), replica_view(batch, r))
+                loss_fn, replica_view(W, r), replica_view(batch, r), tp)
             gf = [g.to(torch.float32) for g in tree_leaves(grads)]
             g_sum = gf if g_sum is None else [a + b for a, b in zip(g_sum, gf)]
             losses.append(loss)

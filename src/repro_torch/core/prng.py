@@ -102,12 +102,13 @@ def _draw(key: Key, shape: Sequence[int], device, fn) -> torch.Tensor:
     """``fn`` of the uniforms of ``shape``, computed ``CHUNK`` elements at
     a time into one f32 buffer, so the int64 counters and words of a
     large draw (about 44 bytes of transients per element) never exist
-    for more than one chunk.  A draw of one chunk, or on the meta device
-    (shapes without storage, where a chunk costs as much as the whole),
-    is returned as computed."""
+    for more than one chunk.  A draw of one chunk is returned as computed;
+    one on the meta device (shapes without storage) is an f32 tensor of
+    the shape, with no threefry round traced."""
     n = math.prod(shape)
-    if n <= CHUNK or (device is not None
-                      and torch.device(device).type == "meta"):
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.float32, device="meta")
+    if n <= CHUNK:
         return fn(_uniform_range(key, 0, n, device)).reshape(tuple(shape))
     out = torch.empty(n, dtype=torch.float32, device=device)
     for start in range(0, n, CHUNK):

@@ -148,7 +148,7 @@ def dequantize_split_pytree(levels: Pytree, norms: Pytree, bits: int = 8,
 def make_qsgd_step(loss_fn, optimizer: Optimizer, bits: int = 8, *,
                    use_kernel: bool = True,
                    replica_ids: Optional[Sequence[int]] = None,
-                   exchange: Optional[Exchange] = None):
+                   exchange: Optional[Exchange] = None, tp=None):
     """Full-communication step with quantized gradients:
     step(W, opt_state, batch, lr, key) -> (W, opt_state, metrics).
 
@@ -160,18 +160,26 @@ def make_qsgd_step(loss_fn, optimizer: Optimizer, bits: int = 8, *,
     ``use_kernel`` the norms of a replica's leaves are taken in one call
     before its quantize loop.  On the mesh backend W holds this process's
     replicas, ``replica_ids`` their global indices (the keys' stream) and
-    ``exchange`` sums the dequantized gradients over the processes."""
+    ``exchange`` sums the dequantized gradients over the processes.  With
+    ``tp`` (the ``replica_tp`` placement) a replica's gradient shards are
+    made whole over the model group before they are quantized, so each
+    leaf's norm and uniforms are the whole leaf's, and each rank keeps
+    its shard of the dequantized gradient."""
 
     def step(W, opt_state, batch, lr, key):
         R = n_replicas(W)
+        if tp is not None:
+            tp.bind(W)
         g_sum: List[torch.Tensor] = []
         losses, auxs = [], []
         ids = range(R) if replica_ids is None else replica_ids
         for r, rkey in enumerate(replica_keys(key, ids)):
             loss, aux, grads = value_and_grad(
-                loss_fn, replica_view(W, r), replica_view(batch, r))
+                loss_fn, replica_view(W, r), replica_view(batch, r), tp)
             leaves = tree_leaves(grads)
             del grads
+            if tp is not None:
+                leaves = tp.whole(leaves)
             with torch.no_grad():
                 nms = (norms(leaves) if use_kernel
                        else [None] * len(leaves))
@@ -182,6 +190,8 @@ def make_qsgd_step(loss_fn, optimizer: Optimizer, bits: int = 8, *,
                     leaves[i] = None           # free the gradient leaf
                     dq = dequantize(lv, nm, bits, g.dtype,
                                     use_kernel=use_kernel).to(torch.float32)
+                    if tp is not None:
+                        dq = tp.cut_leaf(i, dq)
                     if r == 0:
                         g_sum.append(dq)
                     else:

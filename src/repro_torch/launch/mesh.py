@@ -3,19 +3,25 @@
 
 One process per GPU.  A ``ReplicaMesh`` names the axes the reference's
 ``jax.sharding.Mesh`` has (``pod`` / ``data`` / ``model``), this process's
-rank in the world, the process group and the rank's device.  The group is
-NCCL for a mesh on the card and gloo for one on the CPU.
+rank in the world, the process groups and the rank's device.  The groups
+are NCCL for a mesh on the card and gloo for one on the CPU.
+
+``make_host_mesh(model_parallel=m)`` lays the world's ranks out as
+``(data, model) = (world / m, m)`` in ``jax.make_mesh``'s order: rank r
+is data index r // m and model index r % m.  The data group of a rank
+joins the ranks of its model index (the replicas' syncs run there), its
+model group the m ranks of its data index (one replica spread over them,
+the ``replica_tp`` placement), and ``model_mesh`` is that group as a
+one-dimensional ``DeviceMesh`` for DTensor.  With m = 1 every rank holds
+whole replicas (``replica_ddp``) and the data group is the world; the
+model group is a group of its own even of one rank, so that what runs
+over it can be told from what runs over the world.
 
 ``make_host_mesh`` reads torchrun's environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, and ``MASTER_ADDR`` /
 ``MASTER_PORT`` for the rendezvous).  Without it, it builds a one-rank
 group on a ``TCPStore`` on 127.0.0.1.  Given an initialised group (tests
 and ``chip_smoke.py`` create and destroy their own), it takes that one.
-
-Only ``model_parallel=1`` runs here: every rank holds whole-model replicas
-(the ``replica_ddp`` placement).  A ``model`` axis above 1 is the
-``replica_tp`` placement, whose tensor-parallel collectives are the next
-slice of the port.
 """
 from __future__ import annotations
 
@@ -27,7 +33,6 @@ from typing import Dict, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import REPLICA_TP_SLICE
 from repro_torch.device import DeviceLike
 
 # a rank that waits longer than this on a collective fails instead of
@@ -38,9 +43,12 @@ TIMEOUT = timedelta(seconds=600)
 @dataclass
 class ReplicaMesh:
     """Axis sizes (``shape``, in the reference's axis order), this
-    process's ``rank`` and ``world`` size, its process ``group`` and its
-    ``device``.  ``owns_group`` is True when ``make_host_mesh`` created
-    the group; ``close()`` then destroys it."""
+    process's ``rank`` and ``world`` size, its world ``group``, its
+    ``data_group`` and ``model_group`` (the world itself and None for a
+    mesh of whole replicas built by hand), the model group as a
+    ``DeviceMesh`` (``model_mesh``) and its ``device``.  ``owns_group``
+    is True when ``make_host_mesh`` created the world group; ``close()``
+    then destroys it."""
 
     shape: Dict[str, int]
     rank: int
@@ -48,14 +56,31 @@ class ReplicaMesh:
     group: object
     device: torch.device
     owns_group: bool = False
+    data_group: object = None
+    model_group: object = None
+    model_mesh: object = None
     backend: str = field(init=False)
 
     def __post_init__(self):
         self.backend = dist.get_backend(self.group)
+        if self.data_group is None:
+            self.data_group = self.group
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
         return tuple(self.shape)
+
+    @property
+    def model_size(self) -> int:
+        return self.shape.get("model", 1)
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model_size
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model_size
 
     def close(self) -> None:
         if self.owns_group and dist.is_initialized():
@@ -113,33 +138,51 @@ def init_group(device: torch.device, *, rank: int = 0, world: int = 1,
     dist.init_process_group(**kw)
 
 
-def make_host_mesh(model_parallel: int = 1, *, device: DeviceLike = None,
-                   group=None) -> ReplicaMesh:
-    """The mesh of this job's ranks: ``data`` = the world size, ``model``
-    = 1.  Joins the initialised default group (or ``group``), else
-    creates the default group from torchrun's environment, or a one-rank
-    group without one."""
-    if model_parallel != 1:
-        raise NotImplementedError(f"model_parallel={model_parallel}: "
-                                  + REPLICA_TP_SLICE)
+def make_host_mesh(model_parallel: int = 1, *,
+                   device: DeviceLike = None) -> ReplicaMesh:
+    """The mesh of this job's ranks: ``data`` = world / ``model_parallel``,
+    ``model`` = ``model_parallel``.  Joins the initialised default group,
+    else creates it from torchrun's environment, or a one-rank group
+    without one.  A model axis that does not divide the world is refused
+    before any group is touched."""
+    m = int(model_parallel)
+    world = (dist.get_world_size() if dist.is_initialized()
+             else _env_int("WORLD_SIZE", 1))
+    if m < 1 or world % m:
+        raise ValueError(f"model_parallel={m} does not divide the world's "
+                         f"{world} ranks")
     dev = _rank_device(device, _env_int("LOCAL_RANK", 0))
     owns = False
-    if group is None:
-        if not dist.is_initialized():
-            init_group(dev, rank=_env_int("RANK", 0),
-                       world=_env_int("WORLD_SIZE", 1))
-            owns = True
-        group = dist.group.WORLD
-    world = dist.get_world_size(group)
+    if not dist.is_initialized():
+        init_group(dev, rank=_env_int("RANK", 0), world=world)
+        owns = True
+    group = dist.group.WORLD
     if dev.type == "cuda" and dist.get_backend(group) != "nccl":
         raise RuntimeError(f"a mesh on {dev} needs an NCCL group, got "
                            f"{dist.get_backend(group)}")
     if dev.type == "cpu" and dist.get_backend(group) != "gloo":
         raise RuntimeError(f"a mesh on the CPU needs a gloo group, got "
                            f"{dist.get_backend(group)}")
-    return ReplicaMesh({"data": world, "model": 1},
-                       dist.get_rank(group), world, group, dev,
-                       owns_group=owns)
+    rank, n_data = dist.get_rank(group), world // m
+    data_group, model_group = group, None
+    # every rank creates every group, in one order (new_group is
+    # collective over the world)
+    for d in range(n_data):
+        g = dist.new_group([d * m + i for i in range(m)], timeout=TIMEOUT)
+        if d == rank // m:
+            model_group = g
+    if m > 1:
+        for i in range(m):
+            g = dist.new_group([d * m + i for d in range(n_data)],
+                               timeout=TIMEOUT)
+            if i == rank % m:
+                data_group = g
+    from torch.distributed.device_mesh import DeviceMesh
+    model_mesh = DeviceMesh.from_group(model_group, dev.type,
+                                       mesh_dim_names=("model",))
+    return ReplicaMesh({"data": n_data, "model": m}, rank, world, group, dev,
+                       owns_group=owns, data_group=data_group,
+                       model_group=model_group, model_mesh=model_mesh)
 
 
 def make_production_mesh(*, multi_pod: bool = False,
@@ -177,6 +220,9 @@ def n_replicas_for(mesh: ReplicaMesh, plan: str, multi_pod: bool) -> int:
 
 
 def replica_range(mesh: ReplicaMesh, n_replicas: int) -> range:
-    """The global indices of this rank's contiguous chunk of replicas."""
-    per = n_replicas // mesh.world
-    return range(mesh.rank * per, (mesh.rank + 1) * per)
+    """The global indices of this rank's contiguous chunk of replicas:
+    the chunk of its data index (the ranks of one replica's model axis
+    hold the same replicas)."""
+    n_data = mesh.world // mesh.model_size
+    per = n_replicas // n_data
+    return range(mesh.data_index * per, (mesh.data_index + 1) * per)

@@ -18,8 +18,10 @@ the reference.  ``--backend mesh`` spreads the replicas over the
 processes of a ``torch.distributed.run`` launch, one GPU each (NCCL; gloo
 with ``--device cpu``), or runs one process without a launcher; every
 process prints nothing and writes nothing but the first (rank 0).
-``--placement replica_tp`` and ``--model-parallel`` above 1 are refused:
-they are the next slice of the port.
+``--placement replica_tp`` spreads each replica over a model axis of
+``--model-parallel`` ranks (0: the backend's default, 2 when the world is
+even and above 1, else 1), with its leaves sharded by
+``launch/sharding.py``'s rules; both flags are mesh-only.
 ``--no-reduced`` keeps the published widths and ``--layers`` cuts depth.
 ``--arch`` takes every config of ``repro_torch.configs`` (the Mamba
 hybrid ``jamba-1.5-large-398b`` and ``xlstm-350m`` too).  A
@@ -32,6 +34,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import time
 from typing import Optional, Sequence
@@ -41,7 +44,6 @@ import numpy as np
 from repro_torch.backends import available_backends, make_backend
 from repro_torch.checkpoint.io import save_checkpoint, strategy_state
 from repro_torch.configs import AveragingConfig, get_config, reduced
-from repro_torch.configs.base import REPLICA_TP_SLICE
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.launch.steps import make_loss_fn
 from repro_torch.models import model as M
@@ -62,10 +64,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     choices=available_backends())
     ap.add_argument("--placement", default="replica_ddp",
                     choices=["replica_ddp", "replica_tp"],
-                    help="what one replica is on the mesh: a whole model "
-                         "(replica_ddp); replica_tp is not ported yet")
-    ap.add_argument("--model-parallel", type=int, default=1,
-                    help="the mesh's model axis (1: replica_ddp)")
+                    help="mesh-backend replica layout: replica_ddp = each "
+                         "replica is a whole model; replica_tp = one "
+                         "replica spans the mesh's 'model' axis "
+                         "(megatron-style tensor parallelism on DTensors)")
+    ap.add_argument("--model-parallel", type=int, default=0,
+                    help="model-axis size of the mesh (0 = the backend's "
+                         "default: 2 for replica_tp when the world is even "
+                         "and above 1, else 1)")
     ap.add_argument("--sync-kernel", default="auto",
                     choices=["auto", "on", "off"],
                     help="the CUDA kernels of the syncs and the QSGD step "
@@ -124,10 +130,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                  "real|10gbps|100gbps|<x>gbps")
     if args.ckpt_every and not args.ckpt_path:
         ap.error("--ckpt-every needs --ckpt-path")
-    if args.placement != "replica_ddp" or args.model_parallel != 1:
-        raise NotImplementedError(
-            f"--placement {args.placement} --model-parallel "
-            f"{args.model_parallel}: {REPLICA_TP_SLICE}")
+    if args.backend != "mesh" and (args.placement != "replica_ddp"
+                                   or args.model_parallel):
+        ap.error("--placement/--model-parallel are mesh-backend options "
+                 "(use --backend mesh)")
     return args
 
 
@@ -167,8 +173,9 @@ def build_engine(args: argparse.Namespace, callbacks=()):
         decay_steps=(args.steps // 2, 3 * args.steps // 4))
     opt = get_optimizer(run.optimizer, momentum_coef=run.momentum)
     use_kernel = {"auto": None, "on": True, "off": False}[args.sync_kernel]
-    mesh_kw = ({"placement": args.placement} if args.backend == "mesh"
-               else {})
+    mesh_kw = ({"placement": args.placement, "model_cfg": cfg,
+                "model_parallel": args.model_parallel or None}
+               if args.backend == "mesh" else {})
     backend = make_backend(args.backend, use_kernel=use_kernel,
                            device=args.device, **mesh_kw)
 
@@ -220,6 +227,7 @@ def report(args: argparse.Namespace, engine: TrainerEngine):
     if args.ckpt:          # collectives: every process takes part
         final = backend.collapse(hist.final_W)
         state = strategy_state(engine.strategy)
+    by_rank = backend.rank_bytes(hist.final_W)
     if not backend.is_writer:
         return hist
 
@@ -238,10 +246,14 @@ def report(args: argparse.Namespace, engine: TrainerEngine):
         first, last = aux[0], aux[-1]
         print("  aux " + " ".join(
             f"{n} {first[n]:.5f} -> {last[n]:.5f}" for n in sorted(first)))
+    if backend.world > 1:
+        whole = sum(math.prod(s) * x.element_size() for s, x in zip(
+            backend.whole_shapes(hist.final_W), tree_leaves(hist.final_W)))
+        print(f"  parameter bytes by rank: {by_rank} (one replica whole: "
+              f"{whole // backend.n_local} B)")
     leaves = tree_leaves(hist.final_W)
     op = engine.strategy.sync_op()
-    per_event = op.wire_bytes(sum(x.numel() for x in leaves)
-                              // backend.n_local,
+    per_event = op.wire_bytes(backend.n_params(hist.final_W),
                               args.replicas, n_tensors=len(leaves))
     print(f"  wire: {op.name} ({op.wire.kind}, {op.wire.bits} bits) "
           f"{per_event:.3e} B/node per event x {hist.n_syncs} events")

@@ -254,8 +254,8 @@ class TrainerEngine:
         from zero, so the losses are not bit-identical."""
         got = [tuple(x.shape) for x in tree_leaves(W)]
         if self.W is not None:
-            want = [(self._n_replicas,) + tuple(x.shape[1:])
-                    for x in tree_leaves(self.W)]
+            want = [(self._n_replicas,) + s[1:]
+                    for s in self.backend.whole_shapes(self.W)]
         else:
             # no params0: every leaf must still lead with the replica axis
             # this engine was built for
@@ -273,8 +273,8 @@ class TrainerEngine:
         if opt_state is not None:
             opt_state = self.backend.local_replicas(opt_state)
             if self.opt_state is not None:
-                shapes = [[tuple(x.shape) for x in tree_leaves(t)]
-                          for t in (opt_state, self.opt_state)]
+                shapes = [[tuple(x.shape) for x in tree_leaves(opt_state)],
+                          self.backend.whole_shapes(self.opt_state)]
                 if shapes[0] != shapes[1]:
                     raise ValueError("checkpoint's optimizer state does not "
                                      "match the engine's optimizer")

@@ -72,19 +72,31 @@ def test_run_config_matches_reference(arch):
 
 
 @pytest.mark.parametrize("change", [
-    {"plan": "model_parallel"}, {"placement": "replica_tp"},
-    {"shard_activations": False}, {"remat_policy": "dots"},
-    {"vocab_parallel_embed": False}])
+    {"plan": "model_parallel"}, {"placement": "replica_nope"}])
 def test_parallelism_plan_refuses_what_no_backend_reads(change):
-    """The port's mesh backend runs ``replica_ddp`` only: a field only
-    ``replica_tp`` reads, set away from its default, would be ignored, so
-    it is refused (the message names that slice); so is a
-    plan that is none of the reference's (``replica_dp``, ``fsdp`` and
-    ``replica_ddp`` are data the vmap backend ignores, as the
-    reference's does: ``test_torch_moe_configs.py``)."""
-    with pytest.raises(NotImplementedError, match="mesh backend"):
+    """A plan that is none of the reference's (``replica_dp``, ``fsdp``
+    and ``replica_ddp`` are data the vmap backend ignores, as the
+    reference's does: ``test_torch_moe_configs.py``) is refused, and so
+    is a placement the mesh backend does not have."""
+    with pytest.raises((NotImplementedError, ValueError),
+                       match="mesh backend"):
         ParallelismPlan(**change)
     assert ParallelismPlan() == ParallelismPlan(plan="replica_dp")
+
+
+@pytest.mark.parametrize("change", [
+    {"placement": "replica_tp"}, {"shard_activations": False},
+    {"remat_policy": "dots"}, {"vocab_parallel_embed": False}])
+def test_parallelism_plan_carries_the_replica_tp_fields(change):
+    """The fields of the ``replica_tp`` placement are the reference's
+    data: ``placement`` picks the mesh backend's layout and
+    ``vocab_parallel_embed`` the embedding's rule
+    (``launch/sharding.py``); ``shard_activations`` and ``remat_policy``
+    are read by no module of either package."""
+    plan = ParallelismPlan(**change)
+    (k, v), = change.items()
+    assert getattr(plan, k) == v
+    assert ParallelismPlan(**change) == plan
 
 
 def test_available_configs_lists_the_ported_configs():

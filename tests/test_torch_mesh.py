@@ -141,20 +141,63 @@ def test_unknown_placement_is_refused():
 
 @pytest.mark.parametrize("how", ["backend_tp", "backend_mp2", "host_mesh",
                                  "plan", "cli_tp", "cli_mp2"])
-def test_replica_tp_is_the_next_slice(how):
-    """``replica_tp`` and a model axis above 1 are refused, naming the
-    slice that ports them, before any process group is touched."""
-    call = {
-        "backend_tp": lambda: MeshBackend(placement="replica_tp",
-                                          device="cpu"),
-        "backend_mp2": lambda: MeshBackend(model_parallel=2, device="cpu"),
-        "host_mesh": lambda: mesh_mod.make_host_mesh(2, device="cpu"),
-        "plan": lambda: ParallelismPlan(placement="replica_tp"),
-        "cli_tp": lambda: train.parse_args(["--placement", "replica_tp"]),
-        "cli_mp2": lambda: train.parse_args(["--model-parallel", "2"]),
-    }[how]
-    with pytest.raises(NotImplementedError, match="replica_tp.*next slice"):
-        call()
+def test_replica_tp_builds(runs, how):
+    """The calls that named ``replica_tp`` as the next slice now build it:
+    at world 4 the backend's default model axis is 2 (the reference's
+    default for an even world), ``model_parallel=2`` lays the ranks out
+    as 2 × 2 (rank r: data r // 2, model r % 2), and the CLI parses both
+    flags with ``--backend mesh``."""
+    if how == "plan":
+        plan = ParallelismPlan(placement="replica_tp",
+                               vocab_parallel_embed=False)
+        assert plan.placement == "replica_tp"
+        return
+    if how.startswith("cli"):
+        flags = (["--placement", "replica_tp"] if how == "cli_tp"
+                 else ["--model-parallel", "2"])
+        args = train.parse_args(["--backend", "mesh"] + flags)
+        assert (args.placement, args.model_parallel) == (
+            ("replica_tp", 0) if how == "cli_tp" else ("replica_ddp", 2))
+        return
+    for rank, got in enumerate(runs["world4_all"]):
+        t = got["topology"]
+        if how == "backend_tp":
+            d = t["tp_describe"]
+            assert (d["placement"], d["model_parallel"]) == ("replica_tp", 2)
+            assert d["mesh"] == {"data": 2, "model": 2}
+            assert t["tp_replicas"] == list(range(4 * (rank // 2),
+                                                  4 * (rank // 2) + 4))
+        elif how == "backend_mp2":
+            d = t["mp2_describe"]
+            assert (d["placement"], d["model_parallel"]) == ("replica_ddp", 2)
+        else:
+            assert t["host_shape"] == {"data": 2, "model": 2}
+            assert t["host_index"] == (rank // 2, rank % 2)
+            assert t["host_model_ranks"] == [2 * (rank // 2),
+                                             2 * (rank // 2) + 1]
+            assert t["host_data_ranks"] == [rank % 2, rank % 2 + 2]
+
+
+@pytest.mark.parametrize("how", ["no_model_axis", "indivisible",
+                                 "cli_vmap_tp", "cli_vmap_mp2"])
+def test_replica_tp_refusals_as_the_reference(runs, how):
+    """The reference's refusals: ``replica_tp`` on a mesh with no
+    ``model`` axis, a model axis that does not divide the world (before
+    any process group is touched) and the mesh-only flags with
+    ``--backend vmap``."""
+    if how == "no_model_axis":
+        for got in runs["world4_all"]:
+            assert "needs a 'model' mesh axis" in \
+                got["topology"]["refused_no_model"]
+    elif how == "indivisible":
+        with pytest.raises(ValueError, match="does not divide"):
+            mesh_mod.make_host_mesh(3, device="cpu")
+        assert not torch.distributed.is_initialized()
+    else:
+        flag = (["--placement", "replica_tp"] if how == "cli_vmap_tp"
+                else ["--model-parallel", "2"])
+        with pytest.raises(SystemExit):
+            train.parse_args(flag)
 
 
 def test_replica_axes_as_the_reference():
@@ -176,6 +219,7 @@ def test_describe_and_chunks(runs):
         assert t["describe"]["n_devices"] == 4
         assert t["describe"]["mesh"] == {"data": 4, "model": 1}
         assert t["describe"]["placement"] == "replica_ddp"
+        assert t["describe"]["model_parallel"] == 1
         assert t["describe"]["process_group"] == "gloo"
         assert t["describe"]["rank"] == rank
         assert t["replicas"] == [2 * rank, 2 * rank + 1]

@@ -30,8 +30,15 @@ TIMEOUT_S = 120
 # reduced olmo-1b (2 layers, d_model 128), seq 32, adamw, R = 4, batch 4
 AVG = dict(p_init=2, p_const=4, k_sample_frac=0.25, warmup_full_sync_steps=2,
            inner_period=2, adacomm_interval=4, dasgd_delay=2)
+# cnn16: the reference's placement matrix (tests/test_placements.py: 16
+# steps, decay at 10); family: its reduced-transformer family cells (R = 4,
+# batch 2, seq 32, momentum, lr 0.01, 6 steps), ``sc["arch"]`` the config
 MODELS = {"cnn": dict(R=8, opt="momentum", lr=0.05, steps=24, decay=(14,)),
-          "olmo": dict(R=4, opt="adamw", lr=4e-4, steps=16, decay=(8, 12))}
+          "cnn16": dict(R=8, opt="momentum", lr=0.05, steps=16, decay=(10,)),
+          "olmo": dict(R=4, opt="adamw", lr=4e-4, steps=16, decay=(8, 12)),
+          "family": dict(R=4, opt="momentum", lr=0.01, steps=6, decay=())}
+FAMILY_AVG = dict(method="adpsgd", p_init=2, warmup_full_sync_steps=2,
+                  k_sample_frac=0.5)
 
 
 class Group:
@@ -88,19 +95,62 @@ def _setup(sc):
 
     m = MODELS[sc["model"]]
     R, steps = sc.get("R", m["R"]), sc.get("steps", m["steps"])
-    if sc["model"] == "cnn":
+    lr_fn = make_lr_schedule("step", m["lr"], steps, decay_steps=m["decay"])
+    if sc["model"].startswith("cnn"):
         loss_fn = cnn_loss
-        data = SyntheticImages(n_samples=256, seed=0)
-    else:
-        cfg = reduced(get_config("olmo-1b").model, max_seq_len=32)
+        data_fn = SyntheticImages(n_samples=256, seed=0).batches(
+            n_replicas=R, per_replica_batch=4, device="cpu")
+    elif sc["model"] == "family":
+        cfg = model_cfg(sc)
         loss_fn = make_loss_fn(cfg)
-        data = SyntheticTokens(cfg.vocab_size, 32, n_samples=R * 4 * 64,
-                               seed=0)
+        data_fn = family_data(cfg, R)
+        lr_fn = (lambda k: m["lr"])
+    else:
+        cfg = model_cfg(sc)
+        loss_fn = make_loss_fn(cfg)
+        data_fn = SyntheticTokens(cfg.vocab_size, 32, n_samples=R * 4 * 64,
+                                  seed=0).batches(
+            n_replicas=R, per_replica_batch=4, device="cpu")
     return (loss_fn, get_optimizer(sc.get("opt", m["opt"])),
-            params_from_numpy(sc["params"], "cpu"),
-            data.batches(n_replicas=R, per_replica_batch=4, device="cpu"),
-            make_lr_schedule("step", m["lr"], steps, decay_steps=m["decay"]),
-            R, steps)
+            params_from_numpy(sc["params"], "cpu"), data_fn, lr_fn, R, steps)
+
+
+def model_cfg(sc):
+    """The scenario's reduced transformer config (None for the CNN)."""
+    from repro_torch.configs import get_config, reduced
+    if sc.get("model", "cnn").startswith("cnn"):
+        return None
+    arch = sc.get("arch", "olmo-1b")
+    return reduced(get_config(arch).model, max_seq_len=32)
+
+
+def family_data(cfg, R):
+    """The family cells' batches: SyntheticTokens(vocab, 32, 64 samples,
+    seed 0), batch 2 a replica; an encoder-decoder adds seeded frames
+    (``RandomState(1000 + k)``, as the reference's test draws them)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import SyntheticTokens
+    base = SyntheticTokens(cfg.vocab_size, 32, n_samples=64, seed=0).batches(
+        n_replicas=R, per_replica_batch=2, device="cpu")
+    if cfg.encoder is None:
+        return base
+
+    def data_fn(k):
+        b = dict(base(k))
+        rng = np.random.RandomState(1000 + k)
+        b["frames"] = torch.from_numpy(0.1 * rng.randn(
+            R, 2, cfg.encoder.n_frames, cfg.d_model).astype("float32"))
+        return b
+    return data_fn
+
+
+def backend_kw(sc, name="mesh"):
+    """The mesh backend's placement settings of a scenario."""
+    if name != "mesh" or "placement" not in sc:
+        return {}
+    return {"placement": sc["placement"], "model_parallel": sc.get("mp"),
+            "model_cfg": model_cfg(sc)}
 
 
 def make_engine(sc, backend=None, callbacks=()):
@@ -113,9 +163,13 @@ def make_engine(sc, backend=None, callbacks=()):
 
     loss_fn, opt, params0, data_fn, lr_fn, R, steps = _setup(sc)
     if backend is None:
-        backend = make_backend(sc.get("backend", "mesh"), device="cpu",
-                               use_kernel=sc.get("use_kernel"))
-    cfg = dict(AVG, method=sc["method"], **sc.get("avg", {}))
+        name = sc.get("backend", "mesh")
+        backend = make_backend(name, device="cpu",
+                               use_kernel=sc.get("use_kernel"),
+                               **backend_kw(sc, name))
+    cfg = (dict(FAMILY_AVG) if sc["model"] == "family"
+           else dict(AVG, method=sc["method"]))
+    cfg.update(sc.get("avg", {}))
     return TrainerEngine(
         loss_fn=loss_fn, optimizer=opt, params0=params0, n_replicas=R,
         data_fn=data_fn, lr_fn=lr_fn, avg_cfg=AveragingConfig(**cfg),
@@ -147,9 +201,28 @@ def train(sc):
     out = {}
     for name in ("mesh", "vmap") if sc.get("vmap_too") else ("mesh",):
         engine = make_engine(sc, make_backend(
-            name, device="cpu", use_kernel=sc.get("use_kernel")))
+            name, device="cpu", use_kernel=sc.get("use_kernel"),
+            **backend_kw(sc, name)))
         out[name] = history(engine, engine.run())
+        if name == "mesh":
+            out["local_bytes"] = local_bytes(engine)
     return out
+
+
+def local_bytes(engine):
+    """(this rank's bytes of W, one replica's whole bytes × its local
+    replicas, the bytes of the leaves the model axis shards)."""
+    b = engine.backend
+    leaves = _leaves(engine.W)
+    whole = b.whole_shapes(engine.W)
+    dims = b._dims(engine.W)
+    size = [x.element_size() for x in leaves]
+    import math
+    return {"local": sum(x.numel() * e for x, e in zip(leaves, size)),
+            "whole": sum(math.prod(s) * e for s, e in zip(whole, size)),
+            "sharded_whole": sum(math.prod(s) * e for s, e, d in
+                                 zip(whole, size, dims) if d is not None),
+            "m": b.m}
 
 
 class Counter:
@@ -163,6 +236,7 @@ class Counter:
     def __init__(self):
         import torch.distributed as dist
         self.calls = []
+        self.groups = []
         self._orig = {}
         for op in self.OPS:
             fn = getattr(dist, op, None)
@@ -174,10 +248,12 @@ class Counter:
         import torch
 
         def call(*a, **kw):
-            t = a[1] if op == "all_gather" else (a[0] if a else None)
+            t = a[1] if op in ("all_gather", "all_gather_into_tensor") \
+                else (a[0] if a else None)
             n = t.numel() * t.element_size() if isinstance(
                 t, torch.Tensor) else 0
             self.calls.append((op, n))
+            self.groups.append(kw.get("group"))
             return fn(*a, **kw)
         return call
 
@@ -185,6 +261,21 @@ class Counter:
         import torch.distributed as dist
         for op, fn in self._orig.items():
             setattr(dist, op, fn)
+
+
+def group_name(mesh, group):
+    """'data', 'model' or 'world' (a data group that is the world, as at
+    model size 1, is 'data')."""
+    import torch.distributed as dist
+    if group is None or group is dist.group.WORLD:
+        group = mesh.group
+    if group is mesh.data_group:
+        return "data"
+    if group is mesh.model_group:
+        return "model"
+    if group is mesh.group:
+        return "world"
+    return "sub"
 
 
 def counts(sc):
@@ -204,12 +295,14 @@ def counts(sc):
         in_metrics[0] += 1
         return metrics_mean(m)
     backend._metrics_mean = tagged
-    log = []
+    log, groups = [], []
     for name, fn in list(engine.strategy.programs.items()):
         def wrapped(*a, _fn=fn, _name=name):
             before, tag = len(counter.calls), in_metrics[0]
             out = _fn(*a)
             log.append((_name, counter.calls[before:], in_metrics[0] - tag))
+            groups.append([group_name(backend.mesh, g)
+                           for g in counter.groups[before:]])
             return out
         engine.strategy.programs[name] = wrapped
     try:
@@ -217,10 +310,13 @@ def counts(sc):
     finally:
         counter.close()
     leaves = _leaves(engine.W)
-    return {"log": log, "n_leaves": len(leaves),
-            "n_params": sum(x.numel() for x in leaves) // backend.n_local,
+    import torch.distributed as dist
+    return {"log": log, "groups": groups, "n_leaves": len(leaves),
+            "n_params": backend.n_params(engine.W),
             "n_local": backend.n_local, "is_mesh": isinstance(backend,
                                                               MeshBackend),
+            "subgroups": {k: dist.get_process_group_ranks(g) for k, g in
+                          getattr(backend, "_subgroups", {}).items()},
             **history(engine, hist)}
 
 
@@ -243,10 +339,11 @@ def exchange(sc):
     key = prng.prng_key(42)
     out = {}
     for name in ("mesh", "vmap"):
-        b = make_backend(name, device="cpu", use_kernel=sc.get("use_kernel"))
+        b = make_backend(name, device="cpu", use_kernel=sc.get("use_kernel"),
+                         **backend_kw(sc, name))
         b.bind(R)
         anchor = tree_map(lambda x: x.mean(dim=0), W)
-        Wb = b.own(b.local_replicas(W))
+        Wb = b.put_params(b.own(b.local_replicas(W)))
         counter = Counter()
         try:
             Wn, an, s_k = b.quantized_all_mean(8)(Wb, anchor, key)
@@ -344,6 +441,7 @@ def topology(sc):
     except ValueError as e:
         refused = str(e)
     b.bind(2 * b.world)
+    tp = tp_builds()
     os.environ["LOCAL_WORLD_SIZE"] = str(sc["per_node"])
     pods = MeshBackend(mesh_mod.make_production_mesh(multi_pod=True,
                                                      device="cpu"))
@@ -355,12 +453,85 @@ def topology(sc):
                                                             True)
                               for plan in ("replica_ddp", "fsdp")},
             "pods_group_size": pods.default_group_size(),
-            "replicas": list(mesh_mod.replica_range(b.mesh, 2 * b.world))}
+            "replicas": list(mesh_mod.replica_range(b.mesh, 2 * b.world)),
+            **tp}
+
+
+def tp_builds():
+    """What the ``replica_tp`` calls build on this world: the backend at
+    its default model size and with ``model_parallel=2``, the host mesh
+    of model size 2, and the refusal of ``replica_tp`` on a mesh with no
+    ``model`` axis."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.backends.mesh import MeshBackend
+    from repro_torch.launch import mesh as mesh_mod
+
+    tp = MeshBackend(placement="replica_tp", device="cpu")
+    tp.bind(8)
+    mp2 = MeshBackend(model_parallel=2, device="cpu")
+    host = mesh_mod.make_host_mesh(2, device="cpu")
+    flat = mesh_mod.ReplicaMesh({"data": tp.world}, tp.rank, tp.world,
+                                dist.group.WORLD, torch.device("cpu"))
+    try:
+        MeshBackend(flat, placement="replica_tp")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return {"tp_describe": tp.describe(), "mp2_describe": mp2.describe(),
+            "tp_replicas": list(tp._ids()),
+            "host_shape": dict(host.shape),
+            "host_index": (host.data_index, host.model_index),
+            "host_model_ranks": dist.get_process_group_ranks(
+                host.model_group),
+            "host_data_ranks": dist.get_process_group_ranks(
+                host.data_group),
+            "refused_no_model": refused}
+
+
+def tp_fallback(sc):
+    """One replica's loss and gradients through ``ModelShards`` on a
+    column-sharded leaf, with a function DTensor has no strategy for
+    (``Tensor.unfold``) and an einsum over the shard, against the plain
+    computation on the whole leaf; the functions run on whole operands."""
+    import torch
+    from repro_torch.backends.mesh import MeshBackend
+    from repro_torch.core import averaging as avg
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator().manual_seed(0)
+    params = {"fc1": {"w": torch.randn(8, 6, generator=gen),
+                      "b": torch.randn(6, generator=gen)}}
+
+    def loss_fn(p, batch):
+        w = p["fc1"]["w"]
+        u = w.unfold(1, 2, 2)
+        loss = (u.square().sum() + (batch["x"] @ w + p["fc1"]["b"]).sum()
+                + torch.einsum("ij,ik->jk", w, w).sum())
+        return loss, {"u": u.sum()}
+
+    b = MeshBackend(placement="replica_tp", model_parallel=sc["mp"],
+                    device="cpu")
+    b.bind(b.n_replica_devices)
+    W = b.stack_params(params)
+    batch = {"x": torch.randn(3, 8, generator=gen)}
+    shards = b._shards().bind(W)
+    loss, aux, grads = avg.value_and_grad(loss_fn, avg.replica_view(W, 0),
+                                          batch, shards)
+    whole = shards.whole([g.unsqueeze(0) for g in _leaves(grads)],
+                         stacked=True)
+    ploss, paux, pgrads = avg.value_and_grad(
+        loss_fn, tree_map(torch.clone, params), batch)
+    return {"loss": float(loss), "plain_loss": float(ploss),
+            "u": float(aux["u"]), "plain_u": float(paux["u"]),
+            "grads": [g[0].numpy() for g in whole],
+            "plain_grads": [g.numpy() for g in _leaves(pgrads)],
+            "whole": dict(b.whole)}
 
 
 SCENARIOS = {"train": train, "counts": counts, "exchange": exchange,
              "inflight": inflight, "save_half": save_half, "resume": resume,
-             "cli": cli, "topology": topology}
+             "cli": cli, "topology": topology, "tp_fallback": tp_fallback}
 
 
 def main(rank: int, world: int, store: str, spec: str, out: str) -> None:
