@@ -35,20 +35,23 @@ both clocks.  Phase 9 checkpoints phase 3's run after 8 steps and phase
 7's dasgd run with a correction in flight, resumes each through the
 training CLI's setup and ``TrainerEngine.load_state``, and holds both to
 the uninterrupted runs bit for bit; phase 10 serves MiniCPM-2B, GLM4-9B
-and Qwen2.5-14B at full width and depth as phase 5 serves OLMo-1B.  Phase
+and Qwen2.5-14B at full width, cut to half their depth, as phase 5
+serves OLMo-1B.  Phase
 11 trains DeepSeek-V2-Lite (MLA, routed and shared experts, a dense first
 layer) at full width, cut to 2 layers, with ADPSGD at R = 4 (the fused
 mean + sqdev kernel in every sync, at the expert leaves' shapes); phase 12
-serves DeepSeek-V2-Lite at full width and depth and Mixtral-8x22B at full
-width, cut to 4 of 56 layers (neither reaches flash attention, in the
+serves DeepSeek-V2-Lite at full width, cut to 9 of 27 layers, and
+Mixtral-8x22B at full width, cut to 4 of 56 layers (neither reaches flash attention, in the
 reference as here).  Phase 13 trains Qwen2-VL-2B (momentum) and
 Whisper-medium (adamw, 1500 seeded frames a sample) at full width and
 depth with ADPSGD at R = 4, and serves both whole (Qwen2-VL's prefill
 with a 64-patch vision prefix, Whisper's over 1500 frames, both through
 flash; Whisper's encoder and cross attention bypass it, as in the
-reference).  Phase 14 trains xLSTM-350M at full width and depth (R = 4,
+reference).  Phase 14 trains xLSTM-350M at full width cut to 8 of 24
+layers (R = 4,
 adamw) and Jamba-1.5-Large at full width cut to its first layer (Mamba
-and a dense MLP, R = 2) with ADPSGD, and serves xLSTM-350M whole and
+and a dense MLP, R = 2) with ADPSGD, and serves xLSTM-350M cut to 8 of
+24 layers (one mLSTM / sLSTM pattern) and
 Jamba cut to layers 0-4 (four Mamba layers, two of them with 16 experts,
 and the attention layer, through flash) with bf16 parameters; the
 recurrent mixers (the selective scan, the mLSTM's chunks, the sLSTM's
@@ -74,7 +77,16 @@ the vmap run's, the collectives of every program by group (data / model
 sync's ms beside phase 15's and vmap's, the peak memory, the functions
 run on whole operands; then the CLI with the placement, and (on a host
 of 2 GPUs or more; ``--tp-multi-gpu`` runs this part alone) the CLI with
-a model axis of 2 held to phase 3's run.  The process group is
+a model axis of 2 held to phase 3's run.  Phase 16, after 15b, holds
+the dry run's counts to the card: phase 3's local and sync steps
+(``launch/steps.py::make_steps``) and phase 5's flash prefill counted on
+meta tensors (``launch/dryrun.py::analyze``) against one real run of
+each (FLOPs equal ``FlopCounterMode``'s, argument bytes the engine's
+tensors', the predicted peak within 15 % of ``max_memory_allocated``,
+the recorded kernel calls the launches), prints the roofline share of
+the measured step, sync and prefill, and runs ``python -m
+repro_torch.launch.dryrun`` on the fake 32 x 8 mesh for OLMo-1B and
+Mixtral-8x22B at train_4k in subprocesses.  The process group is
 destroyed before the last two lines.  Each path is driven with the launch counts set to 0 just
 before it and read just after.
 
@@ -88,7 +100,8 @@ the CNN experiment; 9 checkpoint / resume; 10 the dense configs served;
 11 the MoE family trained; 12 the MoE family served; 13a-c the
 vision-language and audio models trained and served; 14a-c the Mamba
 hybrid and xLSTM families trained and served; 15 the mesh backend
-(after 9), 15b its ``replica_tp`` placement.  Each phase prints its seconds.  Any failed check exits non-zero.
+(after 9), 15b its ``replica_tp`` placement; 16 the dry run against the
+card (after 15b).  Each phase prints its seconds.  Any failed check exits non-zero.
 The card's ``nvidia-smi`` name and power limit stand on the line before
 the ``{"kernels": [...]}`` line, and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -109,9 +122,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
-F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+# the kernels' bytes, operations and least times on an H100 SXM
+from repro_torch.kernels.cost import (attention_pairs, flash_bound,  # noqa: E402
+                                      fused_sync_bound, mean_sqdev_bound,
+                                      qsgd_bound)
 
 # the paths: OLMo-1B full width, 4 layers, R = 4, adamw
 BASE_ARGV = ["--arch", "olmo-1b", "--backend", "vmap", "--no-reduced",
@@ -194,11 +208,14 @@ GLM4_GQA = (1, 4096, 32, 2, 128)
 PREFILL_32K = (1, 32768, 16, 16, 128)
 # serving: OLMo-1B, all 16 layers, 4 x 2048 prefill; generate 4 x (128 + 128)
 SERVE_BATCH, SERVE_SEQ, SERVE_PROMPT, SERVE_GEN = 4, 2048, 128, 128
-# phase 10: the three dense configs at full width and depth, 1 x 2048
-# prefill, generate 1 x (128 + 32); each one's prefill layer (B, S, H, K, d)
+# phase 10: the three dense configs at full width, 1 x 2048 prefill,
+# generate 1 x (128 + 32); each one's prefill layer (B, S, H, K, d).  Cut
+# to half their depth (``DENSE_LAYERS``; they ran whole until phase 16
+# took the script near its 1200 s limit): every layer is the same block
 DENSE_ARCHS = {"minicpm-2b": (1, 2048, 36, 36, 64),
                "glm4-9b": (1, 2048, 32, 2, 128),
                "qwen2.5-14b": (1, 2048, 40, 8, 128)}
+DENSE_LAYERS = {"minicpm-2b": 20, "glm4-9b": 20, "qwen2.5-14b": 24}
 DENSE_BATCH, DENSE_SEQ, DENSE_PROMPT, DENSE_GEN = 1, 2048, 128, 32
 # phase 9: phase 3 split 8 + 8; phase 7's dasgd split between a snapshot
 # and its apply
@@ -212,9 +229,11 @@ DEEPSEEK_ARGV = ["--arch", "deepseek-v2-lite-16b", "--backend", "vmap",
                  "--method", "adpsgd", "--steps", "16"]
 DEEPSEEK_LEAVES = 27
 DEEPSEEK_PARAMS = 1_085_287_424     # per replica, 2 layers
-# phase 12: DeepSeek-V2-Lite at full width and depth, Mixtral-8x22B at full
-# width cut to 4 of 56 layers; 1 x 2048 prefill, generate 1 x (128 + 32)
-MOE_SERVE = {"deepseek-v2-lite-16b": (0, 15_706_484_224, 2_661_150_208),
+# phase 12: DeepSeek-V2-Lite at full width cut to 9 of 27 layers (its
+# dense first layer and 8 MoE layers; whole until phase 16 took the script
+# near its time limit), Mixtral-8x22B at full width cut to 4 of 56 layers;
+# 1 x 2048 prefill, generate 1 x (128 + 32)
+MOE_SERVE = {"deepseek-v2-lite-16b": (9, 5_179_222_528, 1_165_273_600),
              "mixtral-8x22b": (4, 10_418_903_040, 3_171_145_728)}
 # phase 13: Qwen2-VL-2B and Whisper-medium at full width and depth, R = 4,
 # each config's optimizer (momentum / adamw), DEEPSEEK_ARGV's other flags;
@@ -229,7 +248,8 @@ WHISPER_ARGV = ["--arch", "whisper-medium", "--backend", "vmap",
                 "--seq", "512", "--warmup-sync", "2", "--p-init", "2",
                 "--lr", "4e-4", "--seed", "0", "--method", "adpsgd",
                 "--steps", "16"]
-# (leaves, params) per replica, the reference's jax.eval_shape
+# (leaves, params) per replica at the depth trained (the reference's
+# jax.eval_shape gives the same trees: tests/test_torch_specs.py)
 VLM_AUDIO_TRAIN = {"qwen2-vl-2b": (338, 1_543_714_304),
                    "whisper-medium": (725, 758_248_448)}
 # serving, each one's prefill layer (B, S, H, K, d): Qwen2-VL 1 x (64
@@ -238,13 +258,14 @@ VLM_AUDIO_TRAIN = {"qwen2-vl-2b": (338, 1_543_714_304),
 VLM_AUDIO_ARCHS = {"qwen2-vl-2b": (1, 2048, 12, 2, 128),
                    "whisper-medium": (4, 512, 16, 16, 64)}
 VLM_AUDIO_PROMPT, VLM_AUDIO_GEN = 128, 32
-# phase 14a: xLSTM-350M at full width and depth (21 mLSTM + 3 sLSTM), R =
-# 4, adamw, DEEPSEEK_ARGV's other flags; 14b: Jamba-1.5-Large at full
+# phase 14a: xLSTM-350M at full width cut to one pattern, 8 of 24 layers
+# (7 mLSTM + 1 sLSTM; whole until phase 16 took the script near its time
+# limit: the sLSTM's loop over time steps set its step), R = 4, adamw, DEEPSEEK_ARGV's other flags; 14b: Jamba-1.5-Large at full
 # width cut to layer 0 (Mamba + dense SwiGLU MLP), R = 2 (each MoE layer
 # alone is 9.66 B parameters, 38.7 GB in f32: none trains at R >= 2 on one
 # card; layer 0 at R = 4 with adamw needs about 109 GB)
 XLSTM_ARGV = ["--arch", "xlstm-350m", "--backend", "vmap", "--no-reduced",
-              "--replicas", "4", "--batch", "4", "--seq", "128",
+              "--layers", "8", "--replicas", "4", "--batch", "4", "--seq", "128",
               "--warmup-sync", "2", "--p-init", "2", "--lr", "4e-4",
               "--seed", "0", "--method", "adpsgd", "--steps", "16"]
 JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--backend", "vmap",
@@ -252,16 +273,19 @@ JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--backend", "vmap",
               "--batch", "4", "--seq", "128", "--warmup-sync", "2",
               "--p-init", "2", "--lr", "4e-4", "--seed", "0",
               "--method", "adpsgd", "--steps", "16"]
-# (leaves, params) per replica, the reference's jax.eval_shape
-SSM_TRAIN = {"xlstm-350m": (303, 476_656_808),
+# (leaves, params) per replica at the depth trained (the reference's
+# jax.eval_shape gives the same trees: tests/test_torch_specs.py)
+SSM_TRAIN = {"xlstm-350m": (103, 193_227_832),
              "jamba-1.5-large-398b": (17, 2_098_077_696)}
-# phase 14c: xLSTM-350M whole (f32 parameters); Jamba-1.5-Large at full
+# phase 14c: xLSTM-350M at full width cut to one pattern, 8 of 24 layers
+# (f32 parameters; whole until phase 16 took the script near its time
+# limit: the sLSTM's Python loop over 2048 steps set its time); Jamba-1.5-Large at full
 # width cut to layers 0-4 of 72 (four Mamba, attention at index 4, MoE on
 # layers 1 and 3) with bf16 parameters (48.09 GB; the same five layers are
 # 96.2 GB in f32, and the largest f32 prefix that fits, 3 layers, has no
 # attention layer); each (layers, param dtype, params); 1 x 2048 prefill,
 # generate 1 x (128 + 32)
-SSM_SERVE = {"xlstm-350m": (0, "float32", 476_656_808),
+SSM_SERVE = {"xlstm-350m": (8, "float32", 193_227_832),
              "jamba-1.5-large-398b": (5, "bfloat16", 24_045_707_264)}
 # Jamba's prefill attention layer (B, S, H, K, d): GQA 64 / 8, no
 # positions, no window
@@ -327,67 +351,6 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound(n_bytes: float, n_ops: float,
-          ops_per_s: float = F32_FLOPS_PER_S) -> tuple:
-    """Least time on the card: the larger of bytes over its memory rate and
-    operations over the peak rate for their type (f32 unless given).
-    Returns (ms, "bytes" | "operations")."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / ops_per_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def mean_sqdev_bound(shapes) -> tuple:
-    """mean_and_sqdev over stacked buffers of ``shapes`` in mode mean: each
-    input read once and the mean written once; about 4 f32 operations per
-    input."""
-    n_in = sum(math.prod(s) for s in shapes)
-    n_out = sum(math.prod(s[1:]) for s in shapes)
-    return bound((n_in + n_out) * 4, 4 * n_in)
-
-
-def fused_sync_bound(shapes) -> tuple:
-    """The grouped sync, or DaSGD's snapshot, over stacked buffers of
-    ``shapes``: each input read once and R values written back for each
-    column (the mean into every replica, or the deltas); about 4 f32
-    operations per input."""
-    n = sum(math.prod(s) for s in shapes)
-    return bound(8 * n, 4 * n)
-
-
-def qsgd_bound(name: str, n: int) -> tuple:
-    """Per element: sqnorm reads 4 bytes (2 operations); quantize reads x
-    and u and writes one int8 level (about 8 operations); dequantize
-    reads a level and writes 4 bytes (1 operation)."""
-    n_bytes, n_ops = {"sqnorm": (4, 2), "quantize": (9, 8),
-                      "dequantize": (5, 1)}[name]
-    return bound(n_bytes * n, n_ops * n)
-
-
-def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask lets through, per (batch, head)."""
-    total = 0
-    for i in range(Sq):
-        lo = max(0, i - window + 1) if window else 0
-        hi = min(Sk - 1, i) if causal else Sk - 1
-        total += max(0, hi - lo + 1)
-    return total
-
-
-def flash_bound(shape, causal: bool = True, window: int = 0,
-                elt: int = 2) -> tuple:
-    """flash attention on (B, S, H, K, d): q, k, v read once and o written
-    once; 4·d FLOPs (two multiply-adds per element of q·k and p·v) for each
-    pair the mask lets through, at the bf16 tensor-core rate for bf16
-    inputs."""
-    B, S, H, K, d = shape
-    n_bytes = (2 * B * S * H * d + 2 * B * S * K * d) * elt
-    n_ops = 4 * d * B * H * attention_pairs(S, S, causal, window)
-    return bound(n_bytes, n_ops,
-                 BF16_FLOPS_PER_S if elt == 2 else F32_FLOPS_PER_S)
 
 
 # ------------------------------------------------------------------ phase 2
@@ -2298,8 +2261,9 @@ def mesh_sync_timing(engine, refs) -> dict:
 
 # ----------------------------------------------------------------- phase 10
 def phase_dense_serving() -> dict:
-    """MiniCPM-2B, GLM4-9B and Qwen2.5-14B at full width and depth, one
-    after another (memory released between), through ``serve_checks``:
+    """MiniCPM-2B, GLM4-9B and Qwen2.5-14B at full width, cut to
+    ``DENSE_LAYERS``, one after another (memory released between),
+    through ``serve_checks``:
     a 1 x 2048 prefill (n_layers flash launches; within 1.25x the plain
     route's distance from f32) and generate 1 x (128 + 32)."""
     import dataclasses
@@ -2310,7 +2274,9 @@ def phase_dense_serving() -> dict:
         t0 = time.perf_counter()
         cfg = dataclasses.replace(get_config(arch).model,
                                   max_seq_len=DENSE_SEQ)
-        print(f"  {arch}: full width and depth (no cut)")
+        print(f"  {arch}: full width, cut to {DENSE_LAYERS[arch]} of "
+              f"{cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=DENSE_LAYERS[arch])
         res = serve_checks(cfg, DENSE_BATCH, DENSE_SEQ, DENSE_PROMPT,
                            DENSE_GEN)
         res["wall_s"] = time.perf_counter() - t0
@@ -2364,7 +2330,7 @@ def phase_deepseek_training() -> dict:
 
 # ----------------------------------------------------------------- phase 12
 def phase_moe_serving() -> dict:
-    """DeepSeek-V2-Lite at full width and depth (27 layers, no cut) and
+    """DeepSeek-V2-Lite at full width cut to 9 of its 27 layers and
     Mixtral-8x22B at full width cut to 4 of its 56 layers (140.6 B
     parameters, 562.5 GB in f32, do not fit one card), one after another
     (memory released between), through ``serve_checks``: a 1 x 2048
@@ -2528,8 +2494,9 @@ def phase_vlm_audio_serving() -> dict:
 
 # ----------------------------------------------------------------- phase 14
 def phase_ssm_serving() -> dict:
-    """xLSTM-350M at full width and depth (no cut: 21 mLSTM and 3 sLSTM
-    layers, f32 parameters) and Jamba-1.5-Large at full width cut to
+    """xLSTM-350M at full width cut to 8 of 24 layers (one pattern: 7
+    mLSTM and 1 sLSTM layer, f32 parameters) and Jamba-1.5-Large at full
+    width cut to
     layers 0-4 of 72 with bf16 parameters (``SSM_SERVE``), one after
     another (memory released between), through ``serve_checks``: a 1 x
     2048 prefill (xLSTM: 8 mLSTM chunks and 2048 sLSTM steps in each
@@ -2853,6 +2820,242 @@ def phase_flash_timing() -> dict:
 
 
 # ------------------------------------------------------------------ phase 5
+# ----------------------------------------------------------------- phase 16
+DRYRUN_ARCHS = ("olmo-1b", "mixtral-8x22b")   # the fake-mesh pairs, train_4k
+PEAK_TOL = 0.15             # predicted peak against max_memory_allocated
+
+
+def meta_like(tree):
+    """Each tensor of ``tree`` as an empty tensor of its shape and dtype on
+    the meta device."""
+    import torch
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), tree)
+
+
+def timed_ms(fn, reps: int = 3) -> float:
+    """Median host ms of ``reps`` synchronised calls."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def dryrun_training() -> dict:
+    """(a) Phase 3's configuration through ``make_steps``: the local and
+    sync steps counted on meta tensors (``launch/dryrun.py::analyze``)
+    against one real local step (``FlopCounterMode``, the peak of
+    ``max_memory_allocated``) and one real sync (the launch counts) on
+    the engine's W and optimizer state."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, specs, steps, train
+
+    args = train.parse_args(MAIN_ARGV)
+    release()
+    engine, cfg = train.build_engine(args)
+    fns = steps.make_steps(get_config(args.arch).replace(model=cfg))
+    W, opt = engine.W, engine.opt_state
+    batch = engine.backend.local_replicas(engine.data_fn(0))
+    lr = args.lr
+    meta_W = specs.abstract_params(cfg, n_replicas=args.replicas)
+    meta_opt = specs.abstract_opt_state(fns["optimizer"], meta_W, True)
+    _, loc = dryrun.analyze(fns["local_step"],
+                            (meta_W, meta_opt, meta_like(batch), lr))
+    _, syn = dryrun.analyze(fns["sync_step"], (meta_W, meta_opt))
+    state = dryrun.tree_bytes((W, opt))
+    arg_want = state + dryrun.tree_bytes(batch)
+    print(f"  (a) meta local_step: {loc['aten_flops_per_chip']:.6e} FLOPs, "
+          f"{loc['hbm_bytes_per_chip']:.6e} B, argument bytes "
+          f"{loc['memory']['argument_bytes']} (engine W + optimizer state "
+          f"{state} + batch = {arg_want}), predicted peak "
+          f"{loc['memory']['peak_bytes']} B; meta sync_step kernels "
+          f"{syn['kernels']}, argument bytes {syn['memory']['argument_bytes']}"
+          f"; built in {loc['build_s']:.2f} / {syn['build_s']:.2f} s")
+    check(loc["memory"]["argument_bytes"] == arg_want,
+          f"local step argument bytes {loc['memory']['argument_bytes']} != "
+          f"{arg_want}")
+    check(syn["memory"]["argument_bytes"] == state,
+          f"sync argument bytes {syn['memory']['argument_bytes']} != {state}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        fns["local_step"](W, opt, batch, lr)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    flops = fc.get_total_flops()
+    pred = loc["memory"]["peak_bytes"]
+    print(f"  (a) card local_step: FlopCounterMode {flops:.6e} FLOPs (meta "
+          f"{loc['aten_flops_per_chip']:.6e}); max_memory_allocated {peak} B "
+          f"({before} B allocated before it), predicted {pred} B: "
+          f"{(pred - peak) / peak:+.4%}; the step's own rise {peak - before}"
+          f" B, predicted temporaries {loc['memory']['temp_bytes']} B")
+    check(flops == loc["aten_flops_per_chip"],
+          f"meta FLOPs {loc['aten_flops_per_chip']} != card {flops}")
+    check(abs(pred - peak) <= PEAK_TOL * peak,
+          f"predicted peak {pred} not within {PEAK_TOL:.0%} of {peak}")
+    step_ms = timed_ms(lambda: fns["local_step"](W, opt, batch, lr))
+    reset_counts()
+    fns["sync_step"](W, opt)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    recorded = {k: v["calls"] for k, v in syn["kernels"].items()}
+    print(f"  (a) card sync_step launches {launches}; recorded on meta "
+          f"{recorded}")
+    for name in KERNEL_NAMES:
+        check(launches[name] == recorded.get(name, 0),
+              f"{name}: {launches[name]} launches, {recorded.get(name, 0)} "
+              f"recorded")
+    check(recorded.get("mean_and_sqdev") == 1, "the sync is one launch")
+    sync_ms = timed_ms(lambda: fns["sync_step"](W, opt))
+    del engine, W, opt, batch
+    release()
+    return {"local": loc, "sync": syn, "step_ms": step_ms,
+            "sync_ms": sync_ms, "peak_bytes": peak, "flops": flops,
+            "launches": launches}
+
+
+def dryrun_prefill() -> dict:
+    """(b) Phase 5's prefill (OLMo-1B, all 16 layers, 4 x 2048, flash)
+    counted on meta against one real prefill: flash calls recorded equal
+    to launches, each call's cost the kernel's."""
+    import dataclasses
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels.cost import flash_cost
+    from repro_torch.launch import dryrun, specs, steps
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(serve_config(), use_flash=True)
+    step = steps.make_prefill_step(cfg)
+
+    def prefill(params, batch):
+        with torch.inference_mode():
+            return step(params, batch)
+    release()
+    params = M.init_params(0, cfg, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (SERVE_BATCH, SERVE_SEQ), generator=gen,
+                                     device=DEVICE, dtype=torch.int32)}
+    _, pre = dryrun.analyze(prefill, (specs.abstract_params(cfg),
+                                      meta_like(batch)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with FlopCounterMode(display=False) as fc:
+        prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    flash = pre["kernels"].get("flash_attention", {})
+    d = cfg.head_dim()
+    one = flash_cost(SERVE_BATCH, SERVE_SEQ, SERVE_SEQ, cfg.n_heads,
+                     cfg.n_kv_heads, d, True, 0, 2)
+    print(f"  (b) meta prefill {SERVE_BATCH}x{SERVE_SEQ}: flash recorded "
+          f"{flash}; card launches {launches}; aten FLOPs meta "
+          f"{pre['aten_flops_per_chip']:.6e} card {fc.get_total_flops():.6e}"
+          f"; peak predicted {pre['memory']['peak_bytes']} B, "
+          f"max_memory_allocated {peak} B")
+    check(flash.get("calls") == launches["flash_attention"] == cfg.n_layers,
+          f"flash recorded {flash.get('calls')}, launched "
+          f"{launches['flash_attention']}, layers {cfg.n_layers}")
+    check(flash["bytes"] == cfg.n_layers * one[0]
+          and flash["ops"] == cfg.n_layers * one[1],
+          "the recorded flash costs are not the kernel's")
+    prefill_ms = timed_ms(lambda: prefill(params, batch))
+    del params
+    release()
+    return {"prefill": pre, "prefill_ms": prefill_ms, "launches": launches,
+            "peak_bytes": peak}
+
+
+def dryrun_subprocess(card: str) -> dict:
+    """(d) ``python -m repro_torch.launch.dryrun`` on the fake 32 x 8 mesh
+    for ``DRYRUN_ARCHS`` x train_4k, in a process of its own (this one
+    holds phase 15's NCCL group); each program's three roofline terms and
+    its predicted memory a GPU, beside the card's memory."""
+    import os
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    for arch in DRYRUN_ARCHS:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", "train_4k"], cwd=ROOT, capture_output=True,
+            text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        wall = time.perf_counter() - t0
+        print(f"  (d) dryrun {arch} train_4k: exit {res.returncode} in "
+              f"{wall:.1f} s")
+        check(res.returncode == 0, f"the dry run of {arch} failed:\n"
+              + res.stdout[-3000:] + res.stderr[-3000:])
+        rec = json.loads((ROOT / "experiments" / "dryrun_torch"
+                          / f"{arch}__train_4k__32x8.json").read_text())
+        for prog, r in rec["programs"].items():
+            t = r["roofline"]
+            peak = r["memory"]["peak_bytes"]
+            print(f"  (d) {arch} {prog}: compute {t['compute_s']:.4e} s, "
+                  f"memory {t['memory_s']:.4e} s, collective "
+                  f"{t['collective_s']:.4e} s ({t['dominant']}); "
+                  f"{peak} B a GPU ({peak / 2**30:.2f} GiB): "
+                  f"{'fits' if peak <= total else 'does not fit'} the "
+                  f"card's {total} B ({card})")
+        out[arch] = {"wall_s": wall, "programs": {
+            p: {"roofline": r["roofline"], "peak_bytes":
+                r["memory"]["peak_bytes"], "fits": r["memory"]["peak_bytes"]
+                <= total} for p, r in rec["programs"].items()}}
+    return out
+
+
+def phase_dryrun(card: str) -> dict:
+    """Phase 16: the dry run's counts against the card: (a) phase 3's
+    training steps, (b) phase 5's prefill, (c) the roofline share of the
+    measured step and prefill, (d) the fake-mesh dry run."""
+    train_ = dryrun_training()
+    prefill = dryrun_prefill()
+    share = {
+        "local_step": train_["local"]["roofline"]["bound_s"] * 1e3
+        / train_["step_ms"],
+        "sync_step": train_["sync"]["roofline"]["bound_s"] * 1e3
+        / train_["sync_ms"],
+        "prefill_step": prefill["prefill"]["roofline"]["bound_s"] * 1e3
+        / prefill["prefill_ms"]}
+    print(f"  (c) roofline share (bound_s / measured): local step "
+          f"{share['local_step']:.4f} ({train_['step_ms']:.3f} ms measured, "
+          f"bound {train_['local']['roofline']['bound_s'] * 1e3:.3f} ms, "
+          f"{train_['local']['roofline']['dominant']}); sync "
+          f"{share['sync_step']:.4f} ({train_['sync_ms']:.3f} ms, bound "
+          f"{train_['sync']['roofline']['bound_s'] * 1e3:.3f} ms); prefill "
+          f"{share['prefill_step']:.4f} ({prefill['prefill_ms']:.3f} ms, "
+          f"bound {prefill['prefill']['roofline']['bound_s'] * 1e3:.3f} ms, "
+          f"{prefill['prefill']['roofline']['dominant']})  card: {card}")
+    sub = dryrun_subprocess(card)
+    launches = dict.fromkeys(COUNTS, 0)
+    for part in (train_["launches"], prefill["launches"]):
+        for k in COUNTS:
+            launches[k] += part[k]
+    return {"share": share, "step_ms": train_["step_ms"],
+            "sync_ms": train_["sync_ms"],
+            "prefill_ms": prefill["prefill_ms"],
+            "peak_bytes": {"local_step": train_["peak_bytes"],
+                           "prefill": prefill["peak_bytes"]},
+            "predicted_peak_bytes": {
+                "local_step": train_["local"]["memory"]["peak_bytes"],
+                "prefill": prefill["prefill"]["memory"]["peak_bytes"]},
+            "dryrun": sub, "launches": launches}
+
+
 def serve_config():
     """OLMo-1B as published: all 16 layers, d_model 2048, vocab 50304."""
     import dataclasses
@@ -3280,7 +3483,12 @@ def main() -> int:
     del main_ref, qp_ref, dasgd_ref, hier_ref, refs
     release()
     done("15b")
-    print(f"phase 10: serving MiniCPM-2B, GLM4-9B, Qwen2.5-14B at full width "
+    print(f"phase 16: the dry run's counts against the card (OLMo-1B full "
+          f"width, 4 layers, R=4; the 16-layer prefill; the fake 32 x 8 mesh)"
+          f"  card: {card}")
+    dry = phase_dryrun(card)
+    done("16")
+    print(f"phase 10: serving MiniCPM-2B, GLM4-9B, Qwen2.5-14B at full width, "
           f"and depth  card: {card}")
     dense = phase_dense_serving()
     done("10")
@@ -3288,7 +3496,7 @@ def main() -> int:
           f"27), R=4  card: {card}")
     deepseek = phase_deepseek_training()
     done("11")
-    print(f"phase 12: serving DeepSeek-V2-Lite at full width and depth, "
+    print(f"phase 12: serving DeepSeek-V2-Lite at full width, 9 of 27 layers, "
           f"Mixtral-8x22B at full width, 4 of 56 layers  card: {card}")
     moe_serving = phase_moe_serving()
     done("12")
@@ -3305,7 +3513,7 @@ def main() -> int:
           f"and depth  card: {card}")
     vlm_audio_serving = phase_vlm_audio_serving()
     done("13c")
-    print(f"phase 14a: ADPSGD, xLSTM-350M full width and depth (no cut), "
+    print(f"phase 14a: ADPSGD, xLSTM-350M full width, 8 of 24 layers, "
           f"R=4, adamw  card: {card}")
     xlstm = model_training("xlstm-350m", XLSTM_ARGV)
     done("14a")
@@ -3314,7 +3522,7 @@ def main() -> int:
           f"card: {card}")
     jamba = model_training("jamba-1.5-large-398b", JAMBA_ARGV)
     done("14b")
-    print(f"phase 14c: serving xLSTM-350M at full width and depth, "
+    print(f"phase 14c: serving xLSTM-350M at full width, 8 of 24 layers, "
           f"Jamba-1.5-Large at full width, 5 of 72 layers, bf16 parameters"
           f"  card: {card}")
     ssm_serving = phase_ssm_serving()
@@ -3327,7 +3535,7 @@ def main() -> int:
                  qwen_vl_training=qwen_vl, whisper_training=whisper,
                  vlm_audio_serving=vlm_audio_serving, xlstm_training=xlstm,
                  jamba_training=jamba, ssm_serving=ssm_serving, mesh=mesh,
-                 mesh_tp=mesh_tp)
+                 mesh_tp=mesh_tp, dryrun=dry)
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in COUNTS}
     print("launches by path: " + json.dumps(
@@ -3421,6 +3629,8 @@ def main() -> int:
         {k: v for k, v in mesh.items() if k != "launches"}, default=str))
     print("summary: mesh replica_tp " + json.dumps(
         {k: v for k, v in mesh_tp.items() if k != "launches"}, default=str))
+    print("summary: dry run " + json.dumps(
+        {k: v for k, v in dry.items() if k != "launches"}, default=str))
     print("summary: phase seconds " + json.dumps(phase_s)
           + f" total {sum(phase_s.values()):.1f}")
     print("summary: clock " + json.dumps(

@@ -22,9 +22,11 @@ usable rule for a few ops the families need:
 input sharded over the width and a replicated weight, not output
 channels), ``aten.index.Tensor`` and ``aten.gather`` on a sharded dim
 (the masked partial result fails to mask a lookup of more than one
-index dim) and ``aten.scatter_add`` (gather's backward, given a plain
-index).  ``install_fallbacks`` makes DTensor redistribute every operand
-of these to ``Replicate`` and run the op on whole tensors.
+index dim), ``aten.scatter_add`` (gather's backward, given a plain
+index) and ``aten.argmax`` (a decode step's greedy pick over
+vocab-sharded logits: torch 2.13's handler fails to reshape its gather
+at one row a rank).  ``install_fallbacks`` makes DTensor redistribute
+every operand of these to ``Replicate`` and run the op on whole tensors.
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ from repro_torch.launch import sharding as shard_rules
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 FALLBACK_OPS = ("convolution.default", "convolution_backward.default",
-                "index.Tensor", "gather.default", "scatter_add.default")
+                "index.Tensor", "gather.default", "scatter_add.default",
+                "argmax.default")
 _installed = [False]
 
 

@@ -1,5 +1,5 @@
 from repro_torch.configs.base import (  # noqa: F401
-    AveragingConfig, MLAConfig, MambaConfig, ModelConfig, MoEConfig,
-    ParallelismPlan, RunConfig, available_configs, get_config, reduced,
-    register,
+    AveragingConfig, InputShape, INPUT_SHAPES, MLAConfig, MambaConfig,
+    ModelConfig, MoEConfig, ParallelismPlan, RunConfig, available_configs,
+    get_config, reduced, register,
 )

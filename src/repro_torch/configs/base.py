@@ -11,6 +11,7 @@ dry-run ``InputShape`` tables are not ported.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -135,6 +136,38 @@ class ModelConfig:
             return False
         return (layer_idx % m.moe_every) == (m.moe_every - 1) if m.moe_every > 1 else True
 
+    def scan_grouping(self) -> Optional[Tuple[int, int, int]]:
+        """(prefix_len, period, n_groups) of the reference's ``lax.scan``
+        over layers, or None: layers [prefix:] are n_groups repetitions
+        of a ``period``-long block pattern with one parameter structure
+        per slot.  The port runs a Python loop over layers; the dry run
+        reads this to extrapolate a layer-cut build to full depth."""
+        if not self.scan_layers:
+            return None
+        period = len(self.layer_pattern) if self.layer_pattern else 1
+        if self.moe is not None:
+            period = math.lcm(period, max(1, self.moe.moe_every))
+        prefix = self.moe.first_k_dense if self.moe else 0
+        body = self.n_layers - prefix
+        if body <= 0 or body % period or body // period < 2:
+            return None
+        return prefix, period, body // period
+
+    def is_subquadratic(self) -> bool:
+        """True if a 500k-token decode is feasible (bounded attention
+        state): recurrent layers only, a hybrid whose few attention
+        layers bound the KV cache, or a sliding window."""
+        if self.layer_pattern is not None:
+            kinds = set(self.layer_pattern)
+            if kinds <= {"mamba", "mlstm", "slstm"}:
+                return True
+            if "attn" in kinds and ("mamba" in kinds or "mlstm" in kinds):
+                return True
+        return self.sliding_window > 0
+
+    def has_decoder(self) -> bool:
+        return True  # every config has a decoder
+
 
 PLANS = ("replica_dp", "fsdp", "replica_ddp")
 PLACEMENTS = ("replica_ddp", "replica_tp")
@@ -195,6 +228,22 @@ class AveragingConfig:
     adacomm_mode: str = "iterations"
     adacomm_t0: float = 1.0
     dasgd_delay: int = 2
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str = "train_4k"
+    seq_len: int = 4096
+    global_batch: int = 256
+    kind: str = "train"           # train | prefill | decode
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

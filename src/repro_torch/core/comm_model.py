@@ -1,7 +1,8 @@
-"""Analytic communication model (port of ``repro/core/comm_model.py``
-without its TPU roofline constants): the paper's ring all-reduce
-accounting (16 nodes, 100 vs 10 Gbps).  A ring all-reduce of D bytes moves
-2·(n−1)/n·D per node."""
+"""Analytic communication model (port of ``repro/core/comm_model.py``):
+the paper's ring all-reduce accounting (16 nodes, 100 vs 10 Gbps; a ring
+all-reduce of D bytes moves 2·(n−1)/n·D per node), and the roofline terms
+of a program on H100 GPUs (``roofline_terms``, the reference's arithmetic
+with the H100 SXM's rates in place of the TPU v5e's)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -79,3 +80,26 @@ def speedup_vs_fullsgd(method: str, n_params: int, n_nodes: int,
     t_full = total_steps * step_compute_s + full.time_s
     t_this = total_steps * step_compute_s + this.time_s
     return t_full / t_this
+
+
+# --- H100 SXM roofline constants (NVIDIA data sheet, dense, 700 W) --------
+PEAK_FLOPS_BF16 = 989e12         # per GPU, bf16 tensor cores
+HBM_BW = 3.35e12                 # bytes/s of device memory per GPU
+ICI_BW = 450e9                   # bytes/s per direction per GPU, NVLink 4
+
+
+def roofline_terms(hlo_flops: float, hlo_bytes: float, collective_bytes: float,
+                   n_chips: int, ici_links: int = 1) -> dict:
+    """The three least times of a program over ``n_chips`` GPUs (the
+    reference's arithmetic): its FLOPs at the bf16 peak, its bytes at the
+    HBM rate and its collective bytes at ``ICI_BW`` times ``ici_links``.
+    ``ICI_BW`` prices NVLink 4, the link inside one 8-GPU node (the
+    ``model`` axis); traffic between nodes (the ``data`` and ``pod``
+    axes) crosses the NICs, which are slower, and the dry run's records
+    keep collective bytes by mesh axis so it can be priced apart."""
+    c = hlo_flops / (n_chips * PEAK_FLOPS_BF16)
+    m = hlo_bytes / (n_chips * HBM_BW)
+    x = collective_bytes / (n_chips * ICI_BW * ici_links)
+    dom = max((c, "compute"), (m, "memory"), (x, "collective"))
+    return {"compute_s": c, "memory_s": m, "collective_s": x,
+            "dominant": dom[1], "bound_s": dom[0]}

@@ -10,7 +10,9 @@ cores (f32's tolerance is beyond bf16 or tf32 products).
 version (``kernels/ref.py::attention_ref``) and launches the kernel for
 CUDA tensors — there is no fallback: a kernel that
 fails to build or launch raises.  Each launch adds one to
-``flash_attention.launches``.
+``flash_attention.launches``.  Meta tensors get an output of the right
+shape and dtype, under the CUDA kernel's own checks, and the call's cost
+goes to ``kernels/cost.py``'s recorder; nothing is built or launched.
 
 The reference has no gradient for its kernel, so neither has the port:
 the wrapper refuses inputs that require one while grad mode is on.
@@ -23,7 +25,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.ref import attention_ref
 
 SOURCE = build.CSRC / "flash_attention.cu"
@@ -67,7 +69,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise TypeError(f"flash_attention takes float32 or bfloat16 "
                             f"q, k, v of one dtype; {name} is {t.dtype}, "
                             f"q is {q.dtype}")
-        if t.device != q.device or t.device.type not in ("cpu", "cuda"):
+        if t.device != q.device or t.device.type not in ("cpu", "cuda",
+                                                         "meta"):
             raise ValueError(f"flash_attention: {name} lies on {t.device}; "
                              f"q, k, v must share one cuda or cpu device")
         if not t.is_contiguous():
@@ -98,6 +101,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the CUDA kernel takes head dims "
                          f"{HEAD_DIMS}, got {d}")
+    if q.device.type == "meta":
+        cost.record("flash_attention", *cost.flash_cost(
+            B, Sq, Sk, H, K, d, bool(causal), int(window),
+            q.element_size())[:2])
+        return torch.empty_like(q)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must start on a 16-byte "
                          "boundary")

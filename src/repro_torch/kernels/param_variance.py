@@ -22,7 +22,9 @@ and gives each leaf's Σ_i ||mean − w_i||² (against the given mean in the
 ``mean_and_sqdev`` is the reference's one-leaf contract, the same kernel
 with its leaf passed by value.  A CPU tensor goes to the plain version
 (``kernels/ref.py``) and a CUDA tensor to the kernel — there is no
-fallback: a kernel that fails to build or launch raises.
+fallback: a kernel that fails to build or launch raises.  A tensor on the
+meta device gets outputs of the right shapes, and the call's cost goes to
+``kernels/cost.py``'s recorder; nothing is built or launched.
 
 Each launch adds one to ``mean_and_sqdev.launches`` and the number of
 leaves it covered to ``mean_and_sqdev.leaves``.
@@ -36,7 +38,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.ref import mean_and_sqdev_many_ref, mean_and_sqdev_ref
 
 SOURCE = build.CSRC / "mean_sqdev.cu"
@@ -139,7 +141,7 @@ def _check_leaves(leaves: Sequence[torch.Tensor]) -> int:
         raise ValueError("mean_and_sqdev_many needs (R, ...) leaves, got a "
                          "scalar")
     R, device = first.shape[0], first.device
-    if device.type not in ("cpu", "cuda"):
+    if device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"mean_and_sqdev runs on cuda or cpu, not {device}")
     for x in leaves:
         if x.dtype != torch.float32:
@@ -278,6 +280,11 @@ def mean_and_sqdev_many(leaves: Sequence[torch.Tensor], mode: str = "sync",
             None if mean is None else out_views(mean, leaves, "mean"),
             divisor)
     L = len(leaves)
+    if device.type == "meta":
+        cost.record("mean_and_sqdev", *cost.grouped_cost(
+            [x.shape for x in leaves], mode))
+        return (torch.empty(L, dtype=torch.float32, device=device),
+                torch.empty((), dtype=torch.float32, device=device))
     partials = torch.empty(plan.n_tiles, dtype=torch.float32, device=device)
     res = torch.empty(L + 1, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
@@ -309,6 +316,11 @@ def mean_and_sqdev(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                          f"tensor, got shape {tuple(w.shape)}")
     if w.device.type == "cpu":
         return mean_and_sqdev_ref(w)
+    if w.device.type == "meta":
+        cost.record("mean_and_sqdev", *cost.mean_sqdev_cost([w.shape]))
+        return (torch.empty(w.shape[1:], dtype=torch.float32,
+                            device=w.device),
+                torch.empty((), dtype=torch.float32, device=w.device))
     if w.device.type != "cuda":
         raise ValueError(f"mean_and_sqdev runs on cuda or cpu, not "
                          f"{w.device}")

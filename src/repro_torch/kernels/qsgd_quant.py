@@ -8,7 +8,9 @@ loaded by ``kernels/build.py`` at first use; nothing is compiled when this
 module is imported.  Each wrapper checks its inputs, sends CPU tensors to
 the plain version (``kernels/ref.py``) and launches the kernel for CUDA
 tensors — there is no fallback: a kernel that fails to build or launch
-raises.  Each launch adds one to the wrapper's ``launches`` count.
+raises.  Each launch adds one to the wrapper's ``launches`` count.  Meta
+tensors get outputs of the right shapes and dtypes, and each call that
+would launch reports its cost to ``kernels/cost.py``'s recorder instead.
 
 The uniforms of the stochastic rounding are an input, as in the reference,
 and the norm a device scalar: ``quantize`` takes the norm that ``sqnorm``
@@ -22,7 +24,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.ref import (dequantize_ref, qsgd_scale, quantize_ref,
                                      sqnorm_many_ref)
 
@@ -43,7 +45,7 @@ def _library() -> ctypes.CDLL:
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name} must lie on cuda or cpu, not {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous tensor")
@@ -75,6 +77,11 @@ def sqnorm_many(xs: Sequence[torch.Tensor]) -> torch.Tensor:
                              f"and {x.device}; they must share one device")
     if xs[0].device.type == "cpu":
         return sqnorm_many_ref(xs)
+    if xs[0].device.type == "meta":
+        for t0 in range(0, len(xs), MAX_GROUP):
+            cost.record("sqnorm", *cost.qsgd_cost(
+                "sqnorm", sum(x.numel() for x in xs[t0:t0 + MAX_GROUP])))
+        return torch.empty(len(xs), dtype=torch.float32, device="meta")
     blocks = [build.grid_blocks(x.numel()) for x in xs]
     partials = torch.empty(sum(blocks), dtype=torch.float32,
                            device=xs[0].device)
@@ -117,6 +124,9 @@ def quantize(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor,
     if x.device.type == "cpu":
         return quantize_ref(x, u, bits, norm=norm)[0]
     n = x.numel()
+    if x.device.type == "meta":
+        cost.record("quantize", *cost.qsgd_cost("quantize", n))
+        return torch.empty(x.shape, dtype=torch.int8, device="meta")
     levels = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
         err = _library().repro_qsgd_quantize_f32(
@@ -136,6 +146,9 @@ def dequantize(levels: torch.Tensor, norm: torch.Tensor,
     if levels.device.type == "cpu":
         return dequantize_ref(levels, norm, bits)
     n = levels.numel()
+    if levels.device.type == "meta":
+        cost.record("dequantize", *cost.qsgd_cost("dequantize", n))
+        return torch.empty(levels.shape, dtype=torch.float32, device="meta")
     out = torch.empty(levels.shape, dtype=torch.float32, device=levels.device)
     with torch.cuda.device(levels.device):
         err = _library().repro_qsgd_dequantize_i8(

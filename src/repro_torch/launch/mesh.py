@@ -22,6 +22,10 @@ over it can be told from what runs over the world.
 ``MASTER_PORT`` for the rendezvous).  Without it, it builds a one-rank
 group on a ``TCPStore`` on 127.0.0.1.  Given an initialised group (tests
 and ``chip_smoke.py`` create and destroy their own), it takes that one.
+
+``make_dryrun_mesh(shape)`` builds a mesh of any shape in one process:
+rank 0 of a group on torch's ``fake`` backend, whose collectives move no
+data, with tensors on the meta device (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ class ReplicaMesh:
     data_group: object = None
     model_group: object = None
     model_mesh: object = None
+    device_mesh: object = None
     backend: str = field(init=False)
 
     def __post_init__(self):
@@ -202,6 +207,40 @@ def make_production_mesh(*, multi_pod: bool = False,
         mesh.shape = {"pod": mesh.world // per_node, "data": per_node,
                       "model": 1}
     return mesh
+
+
+def make_dryrun_mesh(shape: Dict[str, int]) -> ReplicaMesh:
+    """A mesh of ``shape`` (axis -> size in the reference's order, e.g.
+    ``{"data": 32, "model": 8}`` or ``{"pod": 2, "data": 32, "model":
+    8}``) in this one process, as rank 0 of a default group on torch's
+    ``fake`` backend: every collective is accepted and moves nothing, and
+    the mesh's tensors live on the meta device.  These are the H100
+    counterparts of the reference's 256- and 512-chip production meshes:
+    32 (or 2 x 32) HGX nodes of 8 GPUs, the ``model`` axis inside one
+    node's NVLink domain.  The data group joins rank 0's replica axes
+    (``pod`` and ``data``); ``close()`` destroys the default group."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if "model" not in shape or not ({"data", "pod"} & set(shape)):
+        raise ValueError(f"a dry-run mesh needs a 'model' axis and a "
+                         f"replica axis ('data' or 'pod'), got {shape}")
+    if dist.is_initialized():
+        raise RuntimeError("a dry-run mesh needs a process without a "
+                           "default process group")
+    world = 1
+    for n in shape.values():
+        world *= n
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    dm = init_device_mesh("cpu", tuple(shape.values()),
+                          mesh_dim_names=tuple(shape))
+    m = shape["model"]
+    data_group = dist.new_group(list(range(0, world, m)))
+    return ReplicaMesh(dict(shape), 0, world, dist.group.WORLD,
+                       torch.device("meta"), owns_group=True,
+                       data_group=data_group,
+                       model_group=dm.get_group("model"),
+                       model_mesh=dm["model"], device_mesh=dm)
 
 
 def replica_axes_for(plan: str, multi_pod: bool):

@@ -126,9 +126,9 @@ def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
                          f"{dh // 2}")
     inv = rope_freqs(dh, theta, x.device)                    # (dh/2,)
     ang = pos3[..., None].to(torch.float32) * inv            # (3,B,S,dh/2)
-    sel = torch.repeat_interleave(
+    sel = torch.repeat_interleave(                           # (dh/2,)
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))             # (dh/2,)
+        torch.tensor(sections, device=x.device), output_size=dh // 2)
     ang = ang.gather(0, sel.expand(1, *ang.shape[1:]))[0]    # (B,S,dh/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]

@@ -4,9 +4,14 @@ arXiv:1810.08313; port of ``repro/strategies/adacomm.py``).
 The period follows the training loss, ``tau_j = ceil(tau_0 *
 sqrt(F_j / F_0))``: communicate rarely while the loss is high and more
 often as it falls.  The strategy is the plain periodic machinery; only the
-controller and the ``observe_loss`` route differ.
+controller and the ``observe_loss`` route differ.  On a mesh of several
+processes the time blocks end on the world's latest wall-clock reading
+(``WorldMaxClock``), so every process keeps one schedule.
 """
 from __future__ import annotations
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import AveragingConfig
 from repro_torch.core.controller import (AdaCommController,
@@ -40,13 +45,32 @@ class AdaCommStrategy(PeriodicAveragingStrategy):
         self.controller.observe_loss(k, loss)
 
     def bind_clock(self, clock) -> None:
-        # every process must pick the same periods: a wall clock reads
-        # differently in each
+        # every process must pick the same periods, and a wall clock reads
+        # differently in each: the controller reads the world's latest
         if (self.cfg.adacomm_mode == "time" and clock is not None
                 and clock.kind == "wall" and self.backend is not None
                 and self.backend.world > 1):
-            raise NotImplementedError(
-                "adacomm_mode='time' on a wall clock over several processes "
-                "would let each process choose its own schedule; use a "
-                "SimulatedClock (--net <x>gbps) or one process")
+            clock = WorldMaxClock(clock, self.backend.mesh.group,
+                                  self.backend.device)
         super().bind_clock(clock)
+
+
+class WorldMaxClock:
+    """A wall clock as the time controller reads it on a mesh of several
+    processes: ``now()`` is the maximum of every process's reading (one
+    scalar all-reduce over ``group``), the straggler's time, so every
+    process ends its blocks at the same steps.  The engine's programs
+    keep timing themselves on the process's own clock."""
+
+    def __init__(self, clock, group, device):
+        self.clock, self.group, self.device = clock, group, device
+        self.kind = clock.kind
+
+    def now(self) -> float:
+        t = torch.tensor([self.clock.now()], dtype=torch.float64,
+                         device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return float(t[0])
+
+    def straggler_factor(self) -> float:
+        return self.clock.straggler_factor()

@@ -27,6 +27,11 @@ quantized sync one all_gather; DaSGD's snapshot one asynchronous
 all-reduce, its apply one (S_k).  ``hier_adpsgd`` with groups inside a
 rank's chunk issues nothing for an inner sync; with groups of two ranks,
 one all-reduce in a subgroup.
+
+AdaComm on time blocks under a wall clock that runs at another rate in
+each of 2 ranks (a stub clock, read deterministically): both ranks end
+their blocks on the world's latest reading, so they keep one schedule and
+one W, that of a one-process run on the faster clock.
 """
 import functools
 
@@ -77,6 +82,14 @@ def _counts(model, method, **kw):
 
 
 HIER = {"inside": (2, 2), "across": (4, 4)}   # (world, group_size) at R=8
+# AdaComm's time blocks: each rank's wall clock advances by its skew at
+# every read (3-5 reads a step), so a 0.1 s block spans 2-4 steps; at
+# tau_0 = 8 the two rates alone give different sync steps
+SKEW = (0.010, 0.013)
+ADACOMM_WALL = dict(kind="adacomm_wall", name="adacomm_wall", model="cnn",
+                    method="adacomm", steps=STEPS, skew=SKEW,
+                    avg={"adacomm_mode": "time", "adacomm_t0": 0.1,
+                         "p_init": 8})
 
 
 @pytest.fixture(scope="module")
@@ -93,7 +106,8 @@ def runs(tmp_path_factory):
            + [_counts("cnn", "dasgd", steps=STEPS)]
            + [exchange, hier["inside"],
               dict(kind="inflight", name="inflight", model="cnn",
-                   method="adpsgd", params=_params("cnn"))])
+                   method="adpsgd", params=_params("cnn")),
+              dict(ADACOMM_WALL, params=_params("cnn"))])
     four = [exchange, hier["across"]]
     groups = {2: ranks.Group(2, two, tmp),
               4: ranks.Group(4, four, tmp)}
@@ -104,8 +118,14 @@ def runs(tmp_path_factory):
     for name, sc in hier.items():
         e = ranks.make_engine(dict(sc, backend="vmap"))
         out["vmap"][f"hier-{name}"] = ranks.history(e, e.run())
+    for skew in SKEW:
+        e = ranks.make_engine(dict(ADACOMM_WALL, params=_params("cnn"),
+                                   backend="vmap"),
+                              clock=ranks.skewed_clock(skew))
+        out["vmap"][f"adacomm_wall_{skew}"] = ranks.history(e, e.run())
     for world, group in groups.items():
-        out[world] = group.wait()[0]
+        out[f"ranks{world}"] = group.wait()
+        out[world] = out[f"ranks{world}"][0]
     return out
 
 
@@ -238,3 +258,21 @@ def test_hier_groups(runs, where):
     inner = [calls for name, calls, _ in got["log"] if name == "inner_sync"]
     want_calls = [] if got["n_local"] % g == 0 else ["all_reduce"]
     assert inner and all([op for op, _ in c] == want_calls for c in inner)
+
+
+# ------------------------------------------- AdaComm on a skewed wall clock
+def test_adacomm_wall_clock_agrees_across_ranks(runs):
+    """The ranks' clocks disagree by 30 %; each rank's time controller
+    reads the maximum over the world, so both pick the same periods, sync
+    at the same steps and end with the same W, as one process on the
+    faster clock does."""
+    r0, r1 = (r["adacomm_wall"] for r in runs["ranks2"])
+    slow, want = (runs["vmap"][f"adacomm_wall_{s}"] for s in SKEW)
+    assert slow["sync_steps"] != want["sync_steps"]   # the skew matters
+    for k in ("sync_steps", "periods", "n_syncs"):
+        assert r0[k] == r1[k] == want[k], k
+    assert len(set(r0["periods"])) > 1, r0["periods"]   # blocks did adapt
+    for a, b in zip(r0["W"], r1["W"]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(r0["W"], want["W"]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)

@@ -153,9 +153,10 @@ def backend_kw(sc, name="mesh"):
             "model_cfg": model_cfg(sc)}
 
 
-def make_engine(sc, backend=None, callbacks=()):
+def make_engine(sc, backend=None, callbacks=(), clock=None):
     """The scenario's engine on ``backend`` (default: its ``backend``
-    setting, "mesh" or "vmap", on the CPU)."""
+    setting, "mesh" or "vmap", on the CPU) and ``clock`` (default: a
+    SimulatedClock on the scenario's ``clock`` network, or none)."""
     from repro_torch.backends import make_backend
     from repro_torch.configs import AveragingConfig
     from repro_torch.runtime import clock as clk
@@ -174,7 +175,8 @@ def make_engine(sc, backend=None, callbacks=()):
         loss_fn=loss_fn, optimizer=opt, params0=params0, n_replicas=R,
         data_fn=data_fn, lr_fn=lr_fn, avg_cfg=AveragingConfig(**cfg),
         total_steps=steps, backend=backend,
-        clock=clk.SimulatedClock(sc["clock"]) if sc.get("clock") else None,
+        clock=clock or (clk.SimulatedClock(sc["clock"]) if sc.get("clock")
+                        else None),
         callbacks=list(callbacks))
 
 
@@ -207,6 +209,32 @@ def train(sc):
         if name == "mesh":
             out["local_bytes"] = local_bytes(engine)
     return out
+
+
+def skewed_clock(skew: float):
+    """A wall clock (``kind == "wall"``) that reads ``skew`` seconds later
+    at each read: processes given different skews see time pass at
+    different rates, deterministically."""
+    from repro_torch.runtime.clock import WallClock
+
+    class SkewedClock(WallClock):
+        def __init__(self):
+            super().__init__()
+            self.reads = 0
+
+        def now(self) -> float:
+            self.reads += 1
+            return skew * self.reads
+
+    return SkewedClock()
+
+
+def adacomm_wall(sc):
+    """AdaComm on time blocks under a wall clock of this rank's skew
+    (``sc["skew"][rank]``) on the mesh: the history and the final W."""
+    import torch.distributed as dist
+    engine = make_engine(sc, clock=skewed_clock(sc["skew"][dist.get_rank()]))
+    return history(engine, engine.run())
 
 
 def local_bytes(engine):
@@ -531,7 +559,8 @@ def tp_fallback(sc):
 
 SCENARIOS = {"train": train, "counts": counts, "exchange": exchange,
              "inflight": inflight, "save_half": save_half, "resume": resume,
-             "cli": cli, "topology": topology, "tp_fallback": tp_fallback}
+             "cli": cli, "topology": topology, "tp_fallback": tp_fallback,
+             "adacomm_wall": adacomm_wall}
 
 
 def main(rank: int, world: int, store: str, spec: str, out: str) -> None:
