@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --tp-multi-gpu   # a host of 2 or 4 GPUs
+    python3 chip_smoke.py --cpu-uniform    # the helper: phase 2's CPU draw
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``, one ``nvcc`` per source, all started together), holds each
@@ -35,23 +36,20 @@ both clocks.  Phase 9 checkpoints phase 3's run after 8 steps and phase
 7's dasgd run with a correction in flight, resumes each through the
 training CLI's setup and ``TrainerEngine.load_state``, and holds both to
 the uninterrupted runs bit for bit; phase 10 serves MiniCPM-2B, GLM4-9B
-and Qwen2.5-14B at full width, cut to half their depth, as phase 5
-serves OLMo-1B.  Phase
+and Qwen2.5-14B at full width and depth as phase 5 serves OLMo-1B.  Phase
 11 trains DeepSeek-V2-Lite (MLA, routed and shared experts, a dense first
 layer) at full width, cut to 2 layers, with ADPSGD at R = 4 (the fused
 mean + sqdev kernel in every sync, at the expert leaves' shapes); phase 12
-serves DeepSeek-V2-Lite at full width, cut to 9 of 27 layers, and
-Mixtral-8x22B at full width, cut to 4 of 56 layers (neither reaches flash attention, in the
+serves DeepSeek-V2-Lite at full width and depth and Mixtral-8x22B at full
+width, cut to 4 of 56 layers (neither reaches flash attention, in the
 reference as here).  Phase 13 trains Qwen2-VL-2B (momentum) and
 Whisper-medium (adamw, 1500 seeded frames a sample) at full width and
 depth with ADPSGD at R = 4, and serves both whole (Qwen2-VL's prefill
 with a 64-patch vision prefix, Whisper's over 1500 frames, both through
 flash; Whisper's encoder and cross attention bypass it, as in the
-reference).  Phase 14 trains xLSTM-350M at full width cut to 8 of 24
-layers (R = 4,
+reference).  Phase 14 trains xLSTM-350M at full width and depth (R = 4,
 adamw) and Jamba-1.5-Large at full width cut to its first layer (Mamba
-and a dense MLP, R = 2) with ADPSGD, and serves xLSTM-350M cut to 8 of
-24 layers (one mLSTM / sLSTM pattern) and
+and a dense MLP, R = 2) with ADPSGD, and serves xLSTM-350M whole and
 Jamba cut to layers 0-4 (four Mamba layers, two of them with 16 experts,
 and the attention layer, through flash) with bf16 parameters; the
 recurrent mixers (the selective scan, the mLSTM's chunks, the sLSTM's
@@ -84,9 +82,13 @@ meta tensors (``launch/dryrun.py::analyze``) against one real run of
 each (FLOPs equal ``FlopCounterMode``'s, argument bytes the engine's
 tensors', the predicted peak within 15 % of ``max_memory_allocated``,
 the recorded kernel calls the launches), prints the roofline share of
-the measured step, sync and prefill, and runs ``python -m
+the measured step, sync and prefill against both rooflines (the least
+traffic, and the eager ops' own), and collects ``python -m
 repro_torch.launch.dryrun`` on the fake 32 x 8 mesh for OLMo-1B and
-Mixtral-8x22B at train_4k in subprocesses.  The process group is
+Mixtral-8x22B at train_4k.  Work that needs no card runs in helper
+processes that see none, started with the script beside the card's
+phases: those two dry runs, and the CPU's draw of phase 2's uniforms
+(held to the card's after phase 3c).  The process group is
 destroyed before the last two lines.  Each path is driven with the launch counts set to 0 just
 before it and read just after.
 
@@ -109,6 +111,7 @@ before any phase.
 """
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import math
@@ -208,14 +211,11 @@ GLM4_GQA = (1, 4096, 32, 2, 128)
 PREFILL_32K = (1, 32768, 16, 16, 128)
 # serving: OLMo-1B, all 16 layers, 4 x 2048 prefill; generate 4 x (128 + 128)
 SERVE_BATCH, SERVE_SEQ, SERVE_PROMPT, SERVE_GEN = 4, 2048, 128, 128
-# phase 10: the three dense configs at full width, 1 x 2048 prefill,
-# generate 1 x (128 + 32); each one's prefill layer (B, S, H, K, d).  Cut
-# to half their depth (``DENSE_LAYERS``; they ran whole until phase 16
-# took the script near its 1200 s limit): every layer is the same block
+# phase 10: the three dense configs at full width and depth, 1 x 2048
+# prefill, generate 1 x (128 + 32); each one's prefill layer (B, S, H, K, d)
 DENSE_ARCHS = {"minicpm-2b": (1, 2048, 36, 36, 64),
                "glm4-9b": (1, 2048, 32, 2, 128),
                "qwen2.5-14b": (1, 2048, 40, 8, 128)}
-DENSE_LAYERS = {"minicpm-2b": 20, "glm4-9b": 20, "qwen2.5-14b": 24}
 DENSE_BATCH, DENSE_SEQ, DENSE_PROMPT, DENSE_GEN = 1, 2048, 128, 32
 # phase 9: phase 3 split 8 + 8; phase 7's dasgd split between a snapshot
 # and its apply
@@ -229,11 +229,9 @@ DEEPSEEK_ARGV = ["--arch", "deepseek-v2-lite-16b", "--backend", "vmap",
                  "--method", "adpsgd", "--steps", "16"]
 DEEPSEEK_LEAVES = 27
 DEEPSEEK_PARAMS = 1_085_287_424     # per replica, 2 layers
-# phase 12: DeepSeek-V2-Lite at full width cut to 9 of 27 layers (its
-# dense first layer and 8 MoE layers; whole until phase 16 took the script
-# near its time limit), Mixtral-8x22B at full width cut to 4 of 56 layers;
-# 1 x 2048 prefill, generate 1 x (128 + 32)
-MOE_SERVE = {"deepseek-v2-lite-16b": (9, 5_179_222_528, 1_165_273_600),
+# phase 12: DeepSeek-V2-Lite at full width and depth, Mixtral-8x22B at full
+# width cut to 4 of 56 layers; 1 x 2048 prefill, generate 1 x (128 + 32)
+MOE_SERVE = {"deepseek-v2-lite-16b": (0, 15_706_484_224, 2_661_150_208),
              "mixtral-8x22b": (4, 10_418_903_040, 3_171_145_728)}
 # phase 13: Qwen2-VL-2B and Whisper-medium at full width and depth, R = 4,
 # each config's optimizer (momentum / adamw), DEEPSEEK_ARGV's other flags;
@@ -248,8 +246,7 @@ WHISPER_ARGV = ["--arch", "whisper-medium", "--backend", "vmap",
                 "--seq", "512", "--warmup-sync", "2", "--p-init", "2",
                 "--lr", "4e-4", "--seed", "0", "--method", "adpsgd",
                 "--steps", "16"]
-# (leaves, params) per replica at the depth trained (the reference's
-# jax.eval_shape gives the same trees: tests/test_torch_specs.py)
+# (leaves, params) per replica, the reference's jax.eval_shape
 VLM_AUDIO_TRAIN = {"qwen2-vl-2b": (338, 1_543_714_304),
                    "whisper-medium": (725, 758_248_448)}
 # serving, each one's prefill layer (B, S, H, K, d): Qwen2-VL 1 x (64
@@ -258,14 +255,13 @@ VLM_AUDIO_TRAIN = {"qwen2-vl-2b": (338, 1_543_714_304),
 VLM_AUDIO_ARCHS = {"qwen2-vl-2b": (1, 2048, 12, 2, 128),
                    "whisper-medium": (4, 512, 16, 16, 64)}
 VLM_AUDIO_PROMPT, VLM_AUDIO_GEN = 128, 32
-# phase 14a: xLSTM-350M at full width cut to one pattern, 8 of 24 layers
-# (7 mLSTM + 1 sLSTM; whole until phase 16 took the script near its time
-# limit: the sLSTM's loop over time steps set its step), R = 4, adamw, DEEPSEEK_ARGV's other flags; 14b: Jamba-1.5-Large at full
+# phase 14a: xLSTM-350M at full width and depth (21 mLSTM + 3 sLSTM), R =
+# 4, adamw, DEEPSEEK_ARGV's other flags; 14b: Jamba-1.5-Large at full
 # width cut to layer 0 (Mamba + dense SwiGLU MLP), R = 2 (each MoE layer
 # alone is 9.66 B parameters, 38.7 GB in f32: none trains at R >= 2 on one
 # card; layer 0 at R = 4 with adamw needs about 109 GB)
 XLSTM_ARGV = ["--arch", "xlstm-350m", "--backend", "vmap", "--no-reduced",
-              "--layers", "8", "--replicas", "4", "--batch", "4", "--seq", "128",
+              "--replicas", "4", "--batch", "4", "--seq", "128",
               "--warmup-sync", "2", "--p-init", "2", "--lr", "4e-4",
               "--seed", "0", "--method", "adpsgd", "--steps", "16"]
 JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--backend", "vmap",
@@ -273,19 +269,16 @@ JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--backend", "vmap",
               "--batch", "4", "--seq", "128", "--warmup-sync", "2",
               "--p-init", "2", "--lr", "4e-4", "--seed", "0",
               "--method", "adpsgd", "--steps", "16"]
-# (leaves, params) per replica at the depth trained (the reference's
-# jax.eval_shape gives the same trees: tests/test_torch_specs.py)
-SSM_TRAIN = {"xlstm-350m": (103, 193_227_832),
+# (leaves, params) per replica, the reference's jax.eval_shape
+SSM_TRAIN = {"xlstm-350m": (303, 476_656_808),
              "jamba-1.5-large-398b": (17, 2_098_077_696)}
-# phase 14c: xLSTM-350M at full width cut to one pattern, 8 of 24 layers
-# (f32 parameters; whole until phase 16 took the script near its time
-# limit: the sLSTM's Python loop over 2048 steps set its time); Jamba-1.5-Large at full
+# phase 14c: xLSTM-350M whole (f32 parameters); Jamba-1.5-Large at full
 # width cut to layers 0-4 of 72 (four Mamba, attention at index 4, MoE on
 # layers 1 and 3) with bf16 parameters (48.09 GB; the same five layers are
 # 96.2 GB in f32, and the largest f32 prefix that fits, 3 layers, has no
 # attention layer); each (layers, param dtype, params); 1 x 2048 prefill,
 # generate 1 x (128 + 32)
-SSM_SERVE = {"xlstm-350m": (8, "float32", 193_227_832),
+SSM_SERVE = {"xlstm-350m": (0, "float32", 476_656_808),
              "jamba-1.5-large-398b": (5, "bfloat16", 24_045_707_264)}
 # Jamba's prefill attention layer (B, S, H, K, d): GQA 64 / 8, no
 # positions, no window
@@ -665,19 +658,101 @@ def phase_qsgd_kernels(device) -> dict:
           f"levels={lv.tolist()}")
     check(lv.tolist()[:2] == [127, -128], f"saturation gave {lv.tolist()}")
     errs["sqnorm"] = max(errs["sqnorm"], phase_sqnorm_many(device))
-    key = prng.split(prng.fold_in(prng.prng_key(17), 3), N_LEAVES)[0]
     t0 = time.perf_counter()
-    on_card = prng.uniform(key, EMBED_SHAPE, device=device).cpu()
-    t1 = time.perf_counter()
-    on_cpu = prng.uniform(key, EMBED_SHAPE, device="cpu")
-    same = torch.equal(on_card, on_cpu)
-    print(f"  uniform {EMBED_SHAPE} card == cpu: {same} "
-          f"(card {t1 - t0:.3f} s with copy, cpu "
-          f"{time.perf_counter() - t1:.3f} s)")
-    check(same, "uniforms on the card differ from the CPU's")
-    del on_card, on_cpu
+    on_card = prng.uniform(uniform_key(), EMBED_SHAPE, device=device).cpu()
+    card_s = time.perf_counter() - t0
+    errs["uniform"] = {"sha256": digest(on_card), "card_s": card_s}
+    print(f"  uniform {EMBED_SHAPE} drawn on the card in {card_s:.3f} s with "
+          f"copy; held to the CPU's draw (a helper process) after phase 3c")
+    del on_card
     release()
     return errs
+
+
+def uniform_key():
+    """The key of phase 2's uniform draw at the embedding's shape."""
+    from repro_torch.core import prng
+    return prng.split(prng.fold_in(prng.prng_key(17), 3), N_LEAVES)[0]
+
+
+def digest(t) -> str:
+    """sha256 of a CPU tensor's dtype, shape and bytes."""
+    import hashlib
+    h = hashlib.sha256(f"{t.dtype} {tuple(t.shape)}".encode())
+    h.update(t.contiguous().numpy().view("uint8"))
+    return h.hexdigest()
+
+
+def main_cpu_uniform() -> int:
+    """``--cpu-uniform``: phase 2's uniform drawn on the CPU; prints its
+    digest and seconds as JSON (``start_cpu_job`` runs it beside the
+    card's phases)."""
+    from repro_torch.core import prng
+    t0 = time.perf_counter()
+    on_cpu = prng.uniform(uniform_key(), EMBED_SHAPE, device="cpu")
+    print(json.dumps({"sha256": digest(on_cpu),
+                      "cpu_s": time.perf_counter() - t0}))
+    return 0
+
+
+def check_uniform(card: dict, job: dict) -> None:
+    """Phase 2's uniform: the card's draw equal, bit for bit, to the
+    CPU's (the helper process's digest)."""
+    rc, out, err, wall = finish_cpu_job(job)
+    check(rc == 0, "the CPU uniform draw failed:\n" + out[-2000:]
+          + err[-2000:])
+    cpu = json.loads(out.strip().splitlines()[-1])
+    same = cpu["sha256"] == card["sha256"]
+    print(f"  phase 2's uniform {EMBED_SHAPE} card == cpu: {same} (card "
+          f"{card['card_s']:.3f} s with copy, cpu {cpu['cpu_s']:.3f} s in a "
+          f"helper process, collected {wall:.1f} s after its start)")
+    check(same, "uniforms on the card differ from the CPU's")
+
+
+# ------------------------------------------------------------ helper jobs
+_JOBS = []          # the helper processes this script started
+
+
+def start_cpu_job(argv, threads: int = 1) -> dict:
+    """Start ``python argv...`` as a process that sees no card
+    (``CUDA_VISIBLE_DEVICES`` empty) and uses ``threads`` CPU threads, so
+    that its host work runs beside the card's phases; ``finish_cpu_job``
+    collects it, and ``stop_cpu_jobs`` kills any still running."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=str(threads))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
+                            stdout=out, stderr=err, text=True)
+    job = {"proc": proc, "out": out, "err": err, "t0": time.perf_counter()}
+    _JOBS.append(job)
+    return job
+
+
+def finish_cpu_job(job: dict, timeout: float = 600.0) -> tuple:
+    """Wait for a helper job: (exit code, stdout, stderr, seconds since it
+    started).  One that outlives ``timeout`` is killed (exit code -9)."""
+    try:
+        rc = job["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        job["proc"].kill()
+        rc = job["proc"].wait()
+    texts = []
+    for f in (job["out"], job["err"]):
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    return rc, texts[0], texts[1], time.perf_counter() - job["t0"]
+
+
+def stop_cpu_jobs() -> None:
+    """Kill every helper job still running (a failed check ends the
+    script before it collects them)."""
+    for job in _JOBS:
+        if job["proc"].poll() is None:
+            job["proc"].kill()
+            job["proc"].wait()
 
 
 def phase_sqnorm_many(device) -> float:
@@ -2261,9 +2336,8 @@ def mesh_sync_timing(engine, refs) -> dict:
 
 # ----------------------------------------------------------------- phase 10
 def phase_dense_serving() -> dict:
-    """MiniCPM-2B, GLM4-9B and Qwen2.5-14B at full width, cut to
-    ``DENSE_LAYERS``, one after another (memory released between),
-    through ``serve_checks``:
+    """MiniCPM-2B, GLM4-9B and Qwen2.5-14B at full width and depth, one
+    after another (memory released between), through ``serve_checks``:
     a 1 x 2048 prefill (n_layers flash launches; within 1.25x the plain
     route's distance from f32) and generate 1 x (128 + 32)."""
     import dataclasses
@@ -2274,9 +2348,7 @@ def phase_dense_serving() -> dict:
         t0 = time.perf_counter()
         cfg = dataclasses.replace(get_config(arch).model,
                                   max_seq_len=DENSE_SEQ)
-        print(f"  {arch}: full width, cut to {DENSE_LAYERS[arch]} of "
-              f"{cfg.n_layers} layers")
-        cfg = dataclasses.replace(cfg, n_layers=DENSE_LAYERS[arch])
+        print(f"  {arch}: full width and depth (no cut)")
         res = serve_checks(cfg, DENSE_BATCH, DENSE_SEQ, DENSE_PROMPT,
                            DENSE_GEN)
         res["wall_s"] = time.perf_counter() - t0
@@ -2330,7 +2402,7 @@ def phase_deepseek_training() -> dict:
 
 # ----------------------------------------------------------------- phase 12
 def phase_moe_serving() -> dict:
-    """DeepSeek-V2-Lite at full width cut to 9 of its 27 layers and
+    """DeepSeek-V2-Lite at full width and depth (27 layers, no cut) and
     Mixtral-8x22B at full width cut to 4 of its 56 layers (140.6 B
     parameters, 562.5 GB in f32, do not fit one card), one after another
     (memory released between), through ``serve_checks``: a 1 x 2048
@@ -2494,9 +2566,8 @@ def phase_vlm_audio_serving() -> dict:
 
 # ----------------------------------------------------------------- phase 14
 def phase_ssm_serving() -> dict:
-    """xLSTM-350M at full width cut to 8 of 24 layers (one pattern: 7
-    mLSTM and 1 sLSTM layer, f32 parameters) and Jamba-1.5-Large at full
-    width cut to
+    """xLSTM-350M at full width and depth (no cut: 21 mLSTM and 3 sLSTM
+    layers, f32 parameters) and Jamba-1.5-Large at full width cut to
     layers 0-4 of 72 with bf16 parameters (``SSM_SERVE``), one after
     another (memory released between), through ``serve_checks``: a 1 x
     2048 prefill (xLSTM: 8 mLSTM chunks and 2048 sLSTM steps in each
@@ -2979,68 +3050,73 @@ def dryrun_prefill() -> dict:
             "peak_bytes": peak}
 
 
-def dryrun_subprocess(card: str) -> dict:
+def start_dryruns() -> dict:
     """(d) ``python -m repro_torch.launch.dryrun`` on the fake 32 x 8 mesh
-    for ``DRYRUN_ARCHS`` x train_4k, in a process of its own (this one
-    holds phase 15's NCCL group); each program's three roofline terms and
-    its predicted memory a GPU, beside the card's memory."""
-    import os
+    for each of ``DRYRUN_ARCHS`` x train_4k, one helper process each
+    (this process holds phase 15's NCCL group), started with the script:
+    the dry run needs no card, and its minutes of host work run beside
+    the card's phases."""
+    return {arch: start_cpu_job(["-m", "repro_torch.launch.dryrun",
+                                 "--arch", arch, "--shape", "train_4k"])
+            for arch in DRYRUN_ARCHS}
+
+
+def dryrun_subprocess(card: str, jobs: dict) -> dict:
+    """(d) The dry runs ``start_dryruns`` started: each exits 0; each
+    program's three roofline terms and its predicted memory a GPU,
+    beside the card's memory."""
     import torch
     total = torch.cuda.get_device_properties(0).total_memory
     out = {}
     for arch in DRYRUN_ARCHS:
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", "train_4k"], cwd=ROOT, capture_output=True,
-            text=True, timeout=600,
-            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-        wall = time.perf_counter() - t0
-        print(f"  (d) dryrun {arch} train_4k: exit {res.returncode} in "
-              f"{wall:.1f} s")
-        check(res.returncode == 0, f"the dry run of {arch} failed:\n"
-              + res.stdout[-3000:] + res.stderr[-3000:])
+        rc, stdout, stderr, wall = finish_cpu_job(jobs[arch])
+        own = [ln for ln in stdout.splitlines() if " pairs in " in ln]
+        print(f"  (d) dryrun {arch} train_4k: exit {rc}, collected {wall:.1f}"
+              f" s after its start ({own[-1] if own else 'no summary'})")
+        check(rc == 0, f"the dry run of {arch} failed:\n"
+              + stdout[-3000:] + stderr[-3000:])
         rec = json.loads((ROOT / "experiments" / "dryrun_torch"
                           / f"{arch}__train_4k__32x8.json").read_text())
         for prog, r in rec["programs"].items():
             t = r["roofline"]
             peak = r["memory"]["peak_bytes"]
             print(f"  (d) {arch} {prog}: compute {t['compute_s']:.4e} s, "
-                  f"memory {t['memory_s']:.4e} s, collective "
+                  f"memory {t['memory_s']:.4e} s (the least traffic "
+                  f"{r['roofline_io']['memory_s']:.4e} s), collective "
                   f"{t['collective_s']:.4e} s ({t['dominant']}); "
                   f"{peak} B a GPU ({peak / 2**30:.2f} GiB): "
                   f"{'fits' if peak <= total else 'does not fit'} the "
                   f"card's {total} B ({card})")
         out[arch] = {"wall_s": wall, "programs": {
-            p: {"roofline": r["roofline"], "peak_bytes":
+            p: {"roofline": r["roofline"], "roofline_io": r["roofline_io"],
+                "peak_bytes":
                 r["memory"]["peak_bytes"], "fits": r["memory"]["peak_bytes"]
                 <= total} for p, r in rec["programs"].items()}}
     return out
 
 
-def phase_dryrun(card: str) -> dict:
+def phase_dryrun(card: str, jobs: dict) -> dict:
     """Phase 16: the dry run's counts against the card: (a) phase 3's
     training steps, (b) phase 5's prefill, (c) the roofline share of the
-    measured step and prefill, (d) the fake-mesh dry run."""
+    measured step and prefill, (d) the fake-mesh dry run (``jobs``, from
+    ``start_dryruns``)."""
     train_ = dryrun_training()
     prefill = dryrun_prefill()
-    share = {
-        "local_step": train_["local"]["roofline"]["bound_s"] * 1e3
-        / train_["step_ms"],
-        "sync_step": train_["sync"]["roofline"]["bound_s"] * 1e3
-        / train_["sync_ms"],
-        "prefill_step": prefill["prefill"]["roofline"]["bound_s"] * 1e3
-        / prefill["prefill_ms"]}
-    print(f"  (c) roofline share (bound_s / measured): local step "
-          f"{share['local_step']:.4f} ({train_['step_ms']:.3f} ms measured, "
-          f"bound {train_['local']['roofline']['bound_s'] * 1e3:.3f} ms, "
-          f"{train_['local']['roofline']['dominant']}); sync "
-          f"{share['sync_step']:.4f} ({train_['sync_ms']:.3f} ms, bound "
-          f"{train_['sync']['roofline']['bound_s'] * 1e3:.3f} ms); prefill "
-          f"{share['prefill_step']:.4f} ({prefill['prefill_ms']:.3f} ms, "
-          f"bound {prefill['prefill']['roofline']['bound_s'] * 1e3:.3f} ms, "
-          f"{prefill['prefill']['roofline']['dominant']})  card: {card}")
-    sub = dryrun_subprocess(card)
+    recs = {"local_step": (train_["local"], train_["step_ms"]),
+            "sync_step": (train_["sync"], train_["sync_ms"]),
+            "prefill_step": (prefill["prefill"], prefill["prefill_ms"])}
+    share = {}
+    for key, what in (("roofline_io", "the least traffic: each argument "
+                       "read once, each result written once"),
+                      ("roofline", "the eager ops' own traffic")):
+        share[key] = {p: r[key]["bound_s"] * 1e3 / ms
+                      for p, (r, ms) in recs.items()}
+        print(f"  (c) roofline share (bound_s / measured) against {what} ("
+              f"{key}): " + "; ".join(
+                  f"{p} {share[key][p]:.4f} ({ms:.3f} ms measured, bound "
+                  f"{r[key]['bound_s'] * 1e3:.3f} ms, {r[key]['dominant']})"
+                  for p, (r, ms) in recs.items()) + f"  card: {card}")
+    sub = dryrun_subprocess(card, jobs)
     launches = dict.fromkeys(COUNTS, 0)
     for part in (train_["launches"], prefill["launches"]):
         for k in COUNTS:
@@ -3381,6 +3457,12 @@ def main() -> int:
     device = torch.device(DEVICE)
     card = card_line()
     phase_s, since = {}, [time.perf_counter()]
+    # the host-only work (phase 2's CPU uniform draw, phase 16's fake-mesh
+    # dry runs) starts now and runs beside the card's phases
+    atexit.register(stop_cpu_jobs)
+    uniform_job = start_cpu_job([str(ROOT / "chip_smoke.py"),
+                                 "--cpu-uniform"], threads=4)
+    dry_jobs = start_dryruns()
 
     def done(name: str) -> None:
         """Print and keep the seconds since the last phase ended."""
@@ -3421,6 +3503,7 @@ def main() -> int:
     errs = phase_kernels(device)
     gerrs = phase_grouped_kernels(device)
     qerrs = phase_qsgd_kernels(device)
+    card_uniform = qerrs.pop("uniform")
     ferrs = phase_flash_kernels(device)
     done("2")
 
@@ -3436,6 +3519,7 @@ def main() -> int:
     done("3b")
     print("phase 3c: qsgd, OLMo-1B full width, 4 layers, R=4")
     qs = phase_qsgd()
+    check_uniform(card_uniform, uniform_job)
     done("3c")
 
     print(f"phase 4: kernel timings  card: {card}")
@@ -3486,9 +3570,9 @@ def main() -> int:
     print(f"phase 16: the dry run's counts against the card (OLMo-1B full "
           f"width, 4 layers, R=4; the 16-layer prefill; the fake 32 x 8 mesh)"
           f"  card: {card}")
-    dry = phase_dryrun(card)
+    dry = phase_dryrun(card, dry_jobs)
     done("16")
-    print(f"phase 10: serving MiniCPM-2B, GLM4-9B, Qwen2.5-14B at full width, "
+    print(f"phase 10: serving MiniCPM-2B, GLM4-9B, Qwen2.5-14B at full width "
           f"and depth  card: {card}")
     dense = phase_dense_serving()
     done("10")
@@ -3496,7 +3580,7 @@ def main() -> int:
           f"27), R=4  card: {card}")
     deepseek = phase_deepseek_training()
     done("11")
-    print(f"phase 12: serving DeepSeek-V2-Lite at full width, 9 of 27 layers, "
+    print(f"phase 12: serving DeepSeek-V2-Lite at full width and depth, "
           f"Mixtral-8x22B at full width, 4 of 56 layers  card: {card}")
     moe_serving = phase_moe_serving()
     done("12")
@@ -3513,7 +3597,7 @@ def main() -> int:
           f"and depth  card: {card}")
     vlm_audio_serving = phase_vlm_audio_serving()
     done("13c")
-    print(f"phase 14a: ADPSGD, xLSTM-350M full width, 8 of 24 layers, "
+    print(f"phase 14a: ADPSGD, xLSTM-350M full width and depth (no cut), "
           f"R=4, adamw  card: {card}")
     xlstm = model_training("xlstm-350m", XLSTM_ARGV)
     done("14a")
@@ -3522,7 +3606,7 @@ def main() -> int:
           f"card: {card}")
     jamba = model_training("jamba-1.5-large-398b", JAMBA_ARGV)
     done("14b")
-    print(f"phase 14c: serving xLSTM-350M at full width, 8 of 24 layers, "
+    print(f"phase 14c: serving xLSTM-350M at full width and depth, "
           f"Jamba-1.5-Large at full width, 5 of 72 layers, bf16 parameters"
           f"  card: {card}")
     ssm_serving = phase_ssm_serving()
@@ -3686,4 +3770,5 @@ def main_tp_multi_gpu() -> int:
 
 if __name__ == "__main__":
     sys.exit(main_tp_multi_gpu() if "--tp-multi-gpu" in sys.argv[1:]
+             else main_cpu_uniform() if "--cpu-uniform" in sys.argv[1:]
              else main())

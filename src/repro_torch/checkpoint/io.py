@@ -14,9 +14,11 @@ package resumes in the other:
 
 The controller's adaptive state is training state: a restored run must
 continue the same period schedule.  Saving writes each leaf as it is
-fetched from the device, so the host holds one leaf at a time, not the
-whole tree as the reference's ``np.savez(**flat)`` does; the archive is
-the one ``np.savez`` writes for the same arrays (stored members, zip64).
+fetched from the device, so the host holds one leaf of each archive at a
+time, not the whole tree as the reference's ``np.savez(**flat)`` does;
+the archive is the one ``np.savez`` writes for the same arrays (stored
+members, zip64).  The archives are written, and read, side by side, one
+thread each (the zip's CRC and the copies hold one core per archive).
 Loading places each leaf on the card unless another device is asked for.
 """
 from __future__ import annotations
@@ -24,7 +26,8 @@ from __future__ import annotations
 import json
 import os
 import zipfile
-from typing import Any, Dict, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,21 +101,29 @@ def _read_npz(path: str, device: torch.device) -> Pytree:
     return _unflatten(flat)
 
 
+def _side_by_side(jobs: Dict[str, Callable[[], Any]]) -> Dict[str, Any]:
+    """Run each job in a thread of its own; their results by name (the
+    first error raised, after every job has ended)."""
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+        futures = {k: pool.submit(fn) for k, fn in jobs.items()}
+    return {k: f.result() for k, f in futures.items()}
+
+
 def save_checkpoint(path: str, params: Pytree, *,
                     opt_state: Optional[Pytree] = None,
                     step: int = 0,
                     controller_state: Optional[Dict] = None,
                     clock_state: Optional[Dict] = None) -> None:
     os.makedirs(path, exist_ok=True)
-    _write_npz(os.path.join(path, "params.npz"), params)
-    if opt_state is not None:
-        _write_npz(os.path.join(path, "opt_state.npz"), opt_state)
     state = dict(controller_state or {})
     arrays = state.pop("_arrays", None)
     arr_path = os.path.join(path, "strategy_arrays.npz")
-    if arrays:
-        _write_npz(arr_path, arrays)
-    elif os.path.exists(arr_path):
+    trees = {"params.npz": params, "opt_state.npz": opt_state,
+             "strategy_arrays.npz": arrays or None}
+    _side_by_side({
+        name: (lambda p=os.path.join(path, name), t=tree: _write_npz(p, t))
+        for name, tree in trees.items() if tree is not None})
+    if not arrays and os.path.exists(arr_path):
         os.remove(arr_path)            # don't resurrect a stale anchor
     meta = {"step": step, "controller": state}
     if clock_state is not None:
@@ -130,18 +141,18 @@ def load_checkpoint(path: str, device: DeviceLike = None,
     ``meta["controller"]["_arrays"]``.  To resume, load onto the host:
     ``TrainerEngine.load_state`` copies each leaf onto the card once."""
     device = resolve_device(device)
-    params = _read_npz(os.path.join(path, "params.npz"), device)
-    opt_state = None
-    opt_path = os.path.join(path, "opt_state.npz")
-    if os.path.exists(opt_path):
-        opt_state = _read_npz(opt_path, device)
+    names = [n for n in ("params.npz", "opt_state.npz",
+                         "strategy_arrays.npz")
+             if n == "params.npz" or os.path.exists(os.path.join(path, n))]
+    trees = _side_by_side({
+        n: (lambda p=os.path.join(path, n): _read_npz(p, device))
+        for n in names})
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
-    arr_path = os.path.join(path, "strategy_arrays.npz")
-    if os.path.exists(arr_path):
-        meta.setdefault("controller", {})["_arrays"] = _read_npz(arr_path,
-                                                                 device)
-    return params, opt_state, meta
+    if "strategy_arrays.npz" in trees:
+        meta.setdefault("controller", {})["_arrays"] = \
+            trees["strategy_arrays.npz"]
+    return trees["params.npz"], trees.get("opt_state.npz"), meta
 
 
 def controller_state(ctrl) -> Dict:

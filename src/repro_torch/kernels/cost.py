@@ -122,11 +122,14 @@ def flash_bound(shape, causal: bool = True, window: int = 0,
     return bound(*flash_cost(B, S, S, H, K, d, causal, window, elt))
 
 
-def record(name: str, n_bytes: float, n_ops: float) -> None:
+def record(name: str, n_bytes: float, n_ops: float, reads=(),
+           writes=()) -> None:
     """Report one kernel call made on the meta device to every active
-    dispatch mode that records kernel calls."""
+    dispatch mode that records kernel calls: its bytes and operations,
+    and the tensors it reads and writes (the meta branch touches no
+    storage, so a recorder sees them only here)."""
     from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
     for mode in _get_current_dispatch_mode_stack():
         hook = getattr(mode, "record_kernel", None)
         if hook is not None:
-            hook(name, n_bytes, n_ops)
+            hook(name, n_bytes, n_ops, reads, writes)

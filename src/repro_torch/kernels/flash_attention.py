@@ -104,7 +104,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "meta":
         cost.record("flash_attention", *cost.flash_cost(
             B, Sq, Sk, H, K, d, bool(causal), int(window),
-            q.element_size())[:2])
+            q.element_size())[:2], reads=(q, k, v))
         return torch.empty_like(q)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must start on a 16-byte "

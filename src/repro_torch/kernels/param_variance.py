@@ -282,7 +282,9 @@ def mean_and_sqdev_many(leaves: Sequence[torch.Tensor], mode: str = "sync",
     L = len(leaves)
     if device.type == "meta":
         cost.record("mean_and_sqdev", *cost.grouped_cost(
-            [x.shape for x in leaves], mode))
+            [x.shape for x in leaves], mode),
+            reads=leaves + [t for t in (mean,) if t is not None],
+            writes=(leaves if mode in NO_OUT else [out]))
         return (torch.empty(L, dtype=torch.float32, device=device),
                 torch.empty((), dtype=torch.float32, device=device))
     partials = torch.empty(plan.n_tiles, dtype=torch.float32, device=device)
@@ -317,7 +319,8 @@ def mean_and_sqdev(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if w.device.type == "cpu":
         return mean_and_sqdev_ref(w)
     if w.device.type == "meta":
-        cost.record("mean_and_sqdev", *cost.mean_sqdev_cost([w.shape]))
+        cost.record("mean_and_sqdev", *cost.mean_sqdev_cost([w.shape]),
+                    reads=(w,))
         return (torch.empty(w.shape[1:], dtype=torch.float32,
                             device=w.device),
                 torch.empty((), dtype=torch.float32, device=w.device))

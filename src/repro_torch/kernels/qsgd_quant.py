@@ -80,7 +80,8 @@ def sqnorm_many(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     if xs[0].device.type == "meta":
         for t0 in range(0, len(xs), MAX_GROUP):
             cost.record("sqnorm", *cost.qsgd_cost(
-                "sqnorm", sum(x.numel() for x in xs[t0:t0 + MAX_GROUP])))
+                "sqnorm", sum(x.numel() for x in xs[t0:t0 + MAX_GROUP])),
+                reads=xs[t0:t0 + MAX_GROUP])
         return torch.empty(len(xs), dtype=torch.float32, device="meta")
     blocks = [build.grid_blocks(x.numel()) for x in xs]
     partials = torch.empty(sum(blocks), dtype=torch.float32,
@@ -125,7 +126,8 @@ def quantize(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor,
         return quantize_ref(x, u, bits, norm=norm)[0]
     n = x.numel()
     if x.device.type == "meta":
-        cost.record("quantize", *cost.qsgd_cost("quantize", n))
+        cost.record("quantize", *cost.qsgd_cost("quantize", n),
+                    reads=(x, u, norm))
         return torch.empty(x.shape, dtype=torch.int8, device="meta")
     levels = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
@@ -147,7 +149,8 @@ def dequantize(levels: torch.Tensor, norm: torch.Tensor,
         return dequantize_ref(levels, norm, bits)
     n = levels.numel()
     if levels.device.type == "meta":
-        cost.record("dequantize", *cost.qsgd_cost("dequantize", n))
+        cost.record("dequantize", *cost.qsgd_cost("dequantize", n),
+                    reads=(levels, norm))
         return torch.empty(levels.shape, dtype=torch.float32, device="meta")
     out = torch.empty(levels.shape, dtype=torch.float32, device=levels.device)
     with torch.cuda.device(levels.device):

@@ -33,6 +33,16 @@ the reference's ring factors by type and by mesh axis, and each kernel
 call's bytes and operations (``kernels/cost.py``; the kernels do not
 run on meta).  Counts are per GPU, as ``flops_per_chip`` means.
 
+Two rooflines come of the counts.  ``roofline`` prices
+``hbm_bytes_per_chip``, the traffic of this implementation's eager ops,
+unfused: it moves whenever the implementation does (a fused kernel
+lowers it), so it is no yardstick for a speed-up.  ``roofline_io``
+prices ``io_bytes_per_chip`` instead, the least traffic of the program:
+each argument it reads, read once, each it writes, written once, and
+each new result written once.  That does not depend on how the program
+is written, and its ``bound_s`` is the denominator of a step's roofline
+share.
+
 ``--no-correction`` builds every program at full depth.  By default a
 train or prefill program of a config with a ``scan_grouping`` is built
 at two cut depths and its counts extrapolated affinely to full depth, as
@@ -79,9 +89,6 @@ MESH = {"data": 32, "model": 8}
 MULTI_POD_MESH = {"pod": 2, "data": 32, "model": 8}
 LR = 1e-3
 TOP = 8          # the ops a record lists by FLOPs and by bytes
-# sequence lengths a model that loops over time steps is built at: 1, 2
-# and 3 of the mLSTM's 256-token chunks
-SEQ_FIT = (256, 512, 768)
 
 # bytes each participant moves per byte of the op's result (ring
 # algorithms; the reference's dryrun.py:89-93)
@@ -180,17 +187,36 @@ class CostMode(TorchDispatchMode):
         # the arguments' storages, held so that their ids stay theirs
         self._known_storages = [t.untyped_storage() for t in known]
         self._known = {id(s) for s in self._known_storages}
+        # the bytes of the arguments on each storage (an argument may be a
+        # view of a larger one: a rank's rows of the stacked replicas)
+        self._arg_bytes: Counter = Counter()
+        for t in {id(t): t for t in known}.values():
+            self._arg_bytes[id(t.untyped_storage())] += \
+                t.numel() * t.element_size()
+        # the arguments' storages the program read and wrote: id -> bytes
+        self.read: Dict[int, int] = {}
+        self.written: Dict[int, int] = {}
 
     def is_known(self, t: torch.Tensor) -> bool:
         return id(t.untyped_storage()) in self._known
 
+    def _touch(self, tensors, into: Dict[int, int]) -> None:
+        """Mark the arguments' storages among ``tensors`` in ``into``."""
+        for t in tensors:
+            s = t.untyped_storage()
+            if id(s) in self._known:
+                into[id(s)] = min(self._arg_bytes[id(s)], s.nbytes())
+
     # ------------------------------------------------------------ kernels
-    def record_kernel(self, name: str, n_bytes: float, n_ops: float) -> None:
+    def record_kernel(self, name: str, n_bytes: float, n_ops: float,
+                      reads=(), writes=()) -> None:
         k = self.kernels.setdefault(name, {"calls": 0, "bytes": 0.0,
                                            "ops": 0.0})
         k["calls"] += 1
         k["bytes"] += n_bytes
         k["ops"] += n_ops
+        self._touch(reads, self.read)
+        self._touch(writes, self.written)
 
     # ------------------------------------------------------------- memory
     def _track(self, out) -> None:
@@ -225,7 +251,8 @@ class CostMode(TorchDispatchMode):
             n = dist.distributed_c10d._get_group_size_by_name(name)
             result = _tensors(out)
         nbytes = sum(t.numel() * t.element_size() for t in result)
-        axis = self.axis_of.get(name, name)
+        # a group of this rank alone (a one-pod fsdp sync's) moves nothing
+        axis = self.axis_of.get(name, "self" if n == 1 else name)
         self.calls.append((op, nbytes, n, axis))
         if func.namespace == "c10d":
             self.c10d_calls.append((op, nbytes, axis))
@@ -242,6 +269,10 @@ class CostMode(TorchDispatchMode):
                 torch._C._TorchDispatchModeKey.FAKE) is not None:
             return func(*args, **kwargs)    # DTensor's shape propagation
         packet = func._overloadpacket
+        if not func.is_view and \
+                func._schema.name.split("::")[1] not in _NO_TRAFFIC:
+            self._touch(_tensors((args, kwargs)), self.read)
+            self._touch(_mutated(func, args, kwargs), self.written)
         if func.namespace in ("_c10d_functional", "c10d"):
             out = func(*args, **kwargs)
             if func._schema.name.split("::")[1] not in _FUNCOL_NOOP:
@@ -268,6 +299,16 @@ class CostMode(TorchDispatchMode):
         if not func.is_view:
             self._track(out)
         return out
+
+
+def _mutated(func, args, kwargs) -> List[torch.Tensor]:
+    """The tensors an op writes in place (its schema's ``(a!)``
+    arguments, ``out=`` among them)."""
+    out = []
+    for i, a in enumerate(func._schema.arguments):
+        if a.alias_info is not None and a.alias_info.is_write:
+            out += _tensors(args[i] if i < len(args) else kwargs.get(a.name))
+    return out
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -304,9 +345,11 @@ def analyze(fn: Callable, args, *, n_chips: int = 1,
                     for t in tree_leaves(out)
                     if isinstance(t, torch.Tensor)
                     and not mode.is_known(_local(t)))
+    io = sum(mode.read.values()) + sum(mode.written.values()) + out_bytes
     rec = {
         "flops_per_chip": float(flops),
         "hbm_bytes_per_chip": float(hbm),
+        "io_bytes_per_chip": float(io),
         "collective_bytes_per_chip": coll["total_bytes"],
         "collectives": coll,
         "aten_flops_per_chip": float(mode.flops),
@@ -319,6 +362,9 @@ def analyze(fn: Callable, args, *, n_chips: int = 1,
                    "peak_bytes": arg_bytes + mode.peak},
         "roofline": roofline_terms(flops * n_chips, hbm * n_chips,
                                    coll["total_bytes"] * n_chips, n_chips),
+        "roofline_io": roofline_terms(flops * n_chips, io * n_chips,
+                                      coll["total_bytes"] * n_chips,
+                                      n_chips),
         "build_s": build_s,
     }
     return out, rec
@@ -474,11 +520,12 @@ def _fsdp_programs(run, mesh, shape, R, rep_axes, fns):
     backward on DTensors over the model mesh (``backends/tp.py``, as
     ``replica_tp`` does), reduce-scatters the gradients over ``data`` and
     updates its block; FULLSGD also all-reduces them over ``pod``.  The
-    sync is the mesh backend's, over ``pod``, on the blocks.  Like the
-    reference's, this program exists only in the dry run."""
+    sync is the mesh backend's, over ``pod``, on the blocks
+    (``_pod_backend``).  Like the reference's, this program exists only
+    in the dry run."""
     from repro_torch.backends import tp as tp_mod
+    from repro_torch.backends.ops import all_mean_op
     from repro_torch.core import averaging as avg
-    from repro_torch.kernels import ops as kops
     cfg, plan = run.model, run.parallelism
     pods = mesh.shape.get("pod", 1)
     pod_group = mesh.device_mesh.get_group("pod") if pods > 1 else None
@@ -518,24 +565,32 @@ def _fsdp_programs(run, mesh, shape, R, rep_axes, fns):
             return W, opt_state, {"loss": loss, **aux}
         return program
 
-    @torch.no_grad()
-    def sync_step(W, opt_state):
-        """The mesh backend's sync on rank 0's blocks: the kernel's mean,
-        summed over the pods, written back; S_k over every rank."""
-        leaves = tree_leaves(W)
-        mean, _ = kops.param_mean_and_sqdev_out(leaves, "mean")
-        kops.param_mean_and_sqdev_many(leaves, "mean", mean)
-        if pod_group is not None:
-            dist.all_reduce(mean, group=pod_group)
-        _, s = kops.param_mean_and_sqdev_many(leaves, "sync_to", None, mean,
-                                              pods)
-        s = s.reshape(1).clone()
-        dist.all_reduce(s, group=mesh.group)
-        return W, opt_state, s[0] / pods
+    sync = _pod_backend(mesh, cfg, R).lower(
+        all_mean_op(), sync_momentum=run.averaging.sync_momentum)
 
     return {"local_step": (step(False), (W, opt_state, batch, LR)),
             "full_step": (step(True), (W, opt_state, batch, LR)),
-            "sync_step": (sync_step, (W, opt_state))}, whole
+            "sync_step": (sync, (W, opt_state))}, whole
+
+
+def _pod_backend(mesh, cfg, R):
+    """The mesh backend an fsdp plan syncs with: its replicas are the
+    pods, and the pod's ranks (data x model) are one replica's model
+    ranks, each holding its block of every leaf.  The sync is then the
+    backend's own (``MeshBackend._lower_all_mean``) on the blocks: the
+    kernel's mean summed over ``pod``, written back, S_k over the
+    world."""
+    from repro_torch.backends.mesh import MeshBackend
+    from repro_torch.launch.mesh import ReplicaMesh
+    pods = mesh.shape.get("pod", 1)
+    group = (mesh.device_mesh.get_group("pod") if pods > 1
+             else dist.new_group([mesh.rank]))
+    pod_mesh = ReplicaMesh({"pod": pods, "model": mesh.world // pods},
+                           mesh.rank, mesh.world, mesh.group, mesh.device,
+                           data_group=group)
+    backend = MeshBackend(pod_mesh, model_cfg=cfg, use_kernel=True)
+    backend.bind(R)
+    return backend
 
 
 def _serve_program(run, mesh, shape):
@@ -659,12 +714,11 @@ def _affine_extrapolate(a1: Dict, a2: Dict, L1: int, L2: int, L: int) -> Dict:
     return _extrapolate_terms([a1, a2], (L1, L2), L)
 
 
-def _extrapolate_record(recs: List[Dict], xs, x, n_chips: int, key: str
-                        ) -> Dict:
-    """A whole record at ``x`` from records built at ``xs`` (depths, where
-    cost is affine; sequence lengths, where an eager time-step loop adds
-    a quadratic term): every count through the polynomial through the
-    points, the call counts rounded; the roofline recomputed."""
+def _extrapolate_record(recs: List[Dict], xs, x, n_chips: int) -> Dict:
+    """A whole record at depth ``x`` from records built at depths ``xs``
+    (cost is affine in the layer count): every count through the line
+    through the points, the call counts rounded; the rooflines
+    recomputed."""
     w = _weights(xs, x)
     out = _extrapolate_terms(recs, xs, x)
     out["aten_flops_per_chip"] = _fit([r["aten_flops_per_chip"]
@@ -685,16 +739,16 @@ def _extrapolate_record(recs: List[Dict], xs, x, n_chips: int, key: str
     out["memory"] = _fit([r["memory"] for r in recs], w, True)
     out["whole"] = _fit([r["whole"] for r in recs], w, True)
     out["top_ops"] = recs[-1]["top_ops"]
-    out["roofline"] = roofline_terms(
-        out["flops_per_chip"] * n_chips, out["hbm_bytes_per_chip"] * n_chips,
-        out["collective_bytes_per_chip"] * n_chips, n_chips)
+    out["io_bytes_per_chip"] = _fit([r["io_bytes_per_chip"] for r in recs],
+                                    w)
+    for key_, b in (("roofline", "hbm_bytes_per_chip"),
+                    ("roofline_io", "io_bytes_per_chip")):
+        out[key_] = roofline_terms(
+            out["flops_per_chip"] * n_chips, out[b] * n_chips,
+            out["collective_bytes_per_chip"] * n_chips, n_chips)
     out["build_s"] = sum(r["build_s"] for r in recs)
     out["cost_corrected"] = True
-    out[key] = list(xs)
-    for r in recs:                     # a fit nested in this one
-        for k in ("depths", "seq_lens"):
-            if k in r and k != key:
-                out[k] = r[k]
+    out["depths"] = list(xs)
     return out
 
 
@@ -703,27 +757,6 @@ def _n_chips(multi_pod: bool) -> int:
     for v in (MULTI_POD_MESH if multi_pod else MESH).values():
         n *= v
     return n
-
-
-def _time_loop(cfg) -> bool:
-    """Whether the model loops over time steps in Python (the sLSTM)."""
-    return bool(cfg.layer_pattern) and "slstm" in cfg.layer_pattern
-
-
-def _seq_fitted(run, shape, prog: str, multi_pod: bool) -> Dict[str, Any]:
-    """``analyze_program``, except for a train or prefill program of a
-    model that loops over time steps: there it is built at ``SEQ_FIT``
-    (whole mLSTM chunks) and fitted by a quadratic in the length (the
-    loop's per-step ``select`` backward writes a whole (B, S, ...)
-    gradient, the only term above linear), since the loop's eager ops
-    take minutes a thousand steps on meta."""
-    if shape.kind == "decode" or prog == "sync_step" \
-            or not _time_loop(run.model) or shape.seq_len <= SEQ_FIT[-1]:
-        return analyze_program(run, shape, prog, multi_pod)
-    recs = [analyze_program(run, dataclasses.replace(shape, seq_len=S), prog,
-                            multi_pod) for S in SEQ_FIT]
-    return _extrapolate_record(recs, SEQ_FIT, shape.seq_len,
-                               _n_chips(multi_pod), "seq_lens")
 
 
 def _corrected_analysis(run, shape, prog: str, multi_pod: bool
@@ -739,11 +772,11 @@ def _corrected_analysis(run, shape, prog: str, multi_pod: bool
     L1, L2 = prefix + P, prefix + 2 * P
     if L2 >= cfg.n_layers:
         return None
-    small = [_seq_fitted(dataclasses.replace(run, model=dataclasses.replace(
+    small = [analyze_program(dataclasses.replace(run, model=dataclasses.replace(
         cfg, n_layers=L, scan_layers=False)), shape, prog, multi_pod)
         for L in (L1, L2)]
     return _extrapolate_record(small, (L1, L2), cfg.n_layers,
-                               _n_chips(multi_pod), "depths")
+                               _n_chips(multi_pod))
 
 
 # ---------------------------------------------------------------------------
@@ -779,7 +812,7 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
         corr = None
         if correct and prog in ("local_step", "full_step", "prefill_step"):
             corr = _corrected_analysis(run, shape, prog, multi_pod)
-        record["programs"][prog] = corr or _seq_fitted(
+        record["programs"][prog] = corr or analyze_program(
             run, shape, prog, multi_pod)
     return record
 

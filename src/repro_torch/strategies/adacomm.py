@@ -50,25 +50,30 @@ class AdaCommStrategy(PeriodicAveragingStrategy):
         if (self.cfg.adacomm_mode == "time" and clock is not None
                 and clock.kind == "wall" and self.backend is not None
                 and self.backend.world > 1):
-            clock = WorldMaxClock(clock, self.backend.mesh.group,
-                                  self.backend.device)
+            clock = WorldMaxClock(clock, self.backend.mesh.group)
         super().bind_clock(clock)
 
 
 class WorldMaxClock:
     """A wall clock as the time controller reads it on a mesh of several
-    processes: ``now()`` is the maximum of every process's reading (one
-    scalar all-reduce over ``group``), the straggler's time, so every
-    process ends its blocks at the same steps.  The engine's programs
-    keep timing themselves on the process's own clock."""
+    processes: ``now()`` is the maximum of every process's reading, the
+    straggler's time, so every process ends its blocks at the same steps.
+    The controller reads the clock at every step (each step may end a
+    block), so each step costs one f64 all-reduce.  It runs over gloo on
+    the host (``group`` itself when it is a gloo group, else a gloo group
+    of the same ranks, made here, collectively), so a step never waits
+    for the card's stream.  The engine's programs keep timing themselves
+    on the process's own clock."""
 
-    def __init__(self, clock, group, device):
-        self.clock, self.group, self.device = clock, group, device
+    def __init__(self, clock, group):
+        self.clock = clock
         self.kind = clock.kind
+        self.group = group if dist.get_backend(group) == "gloo" else \
+            dist.new_group(dist.get_process_group_ranks(group),
+                           backend="gloo")
 
     def now(self) -> float:
-        t = torch.tensor([self.clock.now()], dtype=torch.float64,
-                         device=self.device)
+        t = torch.tensor([self.clock.now()], dtype=torch.float64)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return float(t[0])
 

@@ -270,6 +270,15 @@ def test_meta_counts_equal_a_cpu_run():
         "ops": float(cost.fused_sync_cost(shapes)[1])}}
     assert syn["roofline"] == comm_model.roofline_terms(
         syn["flops_per_chip"], syn["hbm_bytes_per_chip"], 0.0, 1)
+    # the least traffic: W and the optimizer state read and written once,
+    # the batch read, the metrics written; the sync reads and writes W
+    # alone (adamw's moments are not synced)
+    w_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(W))
+    assert loc["io_bytes_per_chip"] == 2 * state + batch["tokens"].nbytes \
+        + loc["memory"]["output_bytes"]
+    assert syn["io_bytes_per_chip"] == 2 * w_bytes + 4
+    assert syn["roofline_io"] == comm_model.roofline_terms(
+        syn["flops_per_chip"], syn["io_bytes_per_chip"], 0.0, 1)
 
 
 def test_depth_correction_is_exact_for_a_dense_model():
@@ -285,8 +294,8 @@ def test_depth_correction_is_exact_for_a_dense_model():
     for k in ("flops_per_chip", "hbm_bytes_per_chip",
               "collective_bytes_per_chip"):
         assert corr[k] == pytest.approx(full[k], rel=1e-9), k
-    assert corr["memory"]["argument_bytes"] == \
-        full["memory"]["argument_bytes"]
+    assert corr["io_bytes_per_chip"] == full["io_bytes_per_chip"]
+    assert corr["memory"] == full["memory"]
 
 
 # ----------------------------------------------------- the fake 2 x 2 mesh
@@ -318,6 +327,40 @@ def test_fake_mesh_collectives_by_group():
     sync = recs["sync_step"]["collectives"]["c10d_calls"]
     assert sync == [["all-reduce", 4 * n_local_params // n_local, "data"],
                     ["all-reduce", 4, "world"]]
+    # the least traffic counts the rank's rows of W (views of the stacked
+    # replicas), read and written, not the storage they are cut from
+    assert recs["sync_step"]["io_bytes_per_chip"] == 2 * 4 * n_local_params + 4
     by_axis = recs["local_step"]["collectives"]["count_by_axis"]
     assert by_axis["model"] > n_local and by_axis["data"] == 1
     assert whole["einsum"] > 0
+
+
+@pytest.mark.parametrize("pods", [1, 2])
+def test_fsdp_sync_is_the_mesh_backends(pods):
+    """An fsdp plan (reduced Mixtral) on a fake (pod,) data 2 x model 2
+    mesh syncs through the mesh backend's own all_mean on rank 0's
+    blocks: the kernel's mean and its write-back (two calls), the mean
+    bucket all-reduced over ``pod`` (over this rank alone with one pod),
+    S_k over the world."""
+    run = get_config("mixtral-8x22b")
+    run = run.replace(model=reduced(run.model, max_seq_len=S))
+    assert run.parallelism.plan == "fsdp"
+    fns = steps.make_steps(run)
+    shape = {"data": 2, "model": 2}
+    mesh = make_dryrun_mesh({"pod": 2, **shape} if pods > 1 else shape)
+    try:
+        rep_axes = ("pod",) if pods > 1 else ()
+        programs, _ = dryrun._fsdp_programs(
+            run, mesh, InputShape("t", S, 2 * B, "train"), pods, rep_axes,
+            fns)
+        fn, args = programs["sync_step"]
+        _, rec = dryrun.analyze(fn, args, n_chips=mesh.world,
+                                axis_of=dryrun._axis_of(mesh))
+        block = sum(x.numel() for x in tree_leaves(args[0]))
+    finally:
+        mesh.close()
+    assert rec["kernels"]["mean_and_sqdev"]["calls"] == 2
+    assert rec["collectives"]["c10d_calls"] == [
+        ["all-reduce", 4 * block, "pod" if pods > 1 else "self"],
+        ["all-reduce", 4, "world"]]
+    assert rec["io_bytes_per_chip"] == 2 * 4 * block + 4
