@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --tp-multi-gpu   # a host of 2 or 4 GPUs
     python3 chip_smoke.py --cpu-uniform    # the helper: phase 2's CPU draw
+    python3 chip_smoke.py --remat-peaks    # the helper: phase 17's meta peaks
+    python3 chip_smoke.py --cnn PATH       # phase 8 in its own process
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``, one ``nvcc`` per source, all started together), holds each
@@ -85,10 +87,20 @@ the recorded kernel calls the launches), prints the roofline share of
 the measured step, sync and prefill against both rooflines (the least
 traffic, and the eager ops' own), and collects ``python -m
 repro_torch.launch.dryrun`` on the fake 32 x 8 mesh for OLMo-1B and
-Mixtral-8x22B at train_4k.  Work that needs no card runs in helper
-processes that see none, started with the script beside the card's
-phases: those two dry runs, and the CPU's draw of phase 2's uniforms
-(held to the card's after phase 3c).  The process group is
+Mixtral-8x22B at train_4k.  Phase 17 trains OLMo-1B at full
+width and all 16 layers at 2 x 4096 tokens a replica (R = 2, adamw,
+ADPSGD) under the config's remat: the card's peak held within 5 % of
+the meta count with remat, which without remat passes 80 GiB; and at 2
+layers one replica's gradients with remat off, "nothing" and "dots",
+bitwise equal, their peaks in the order nothing < dots < off.  Work that
+needs no card runs in helper processes that see none, started with the
+script beside the card's phases: those two dry runs, phase 17's meta
+count (``--remat-peaks``) and the CPU's draw of phase 2's uniforms (held
+to the card's after phase 3c); phase 8, and phases 15 and 15b's CLI
+runs, run as processes of their own on the card beside phase 9 (its
+checkpoint I/O is host work) once the card's free memory holds all four,
+and end before phase 15, so phase 9 alone is timed beside them.  The
+process group is
 destroyed before the last two lines.  Each path is driven with the launch counts set to 0 just
 before it and read just after.
 
@@ -103,7 +115,9 @@ the CNN experiment; 9 checkpoint / resume; 10 the dense configs served;
 vision-language and audio models trained and served; 14a-c the Mamba
 hybrid and xLSTM families trained and served; 15 the mesh backend
 (after 9), 15b its ``replica_tp`` placement; 16 the dry run against the
-card (after 15b).  Each phase prints its seconds.  Any failed check exits non-zero.
+card (after 15b); 17 OLMo-1B trained whole at 4096 tokens under remat.
+Every training phase runs its config's activation rematerialisation
+(``cfg.remat``, policy "nothing").  Each phase prints its seconds.  Any failed check exits non-zero.
 The card's ``nvidia-smi`` name and power limit stand on the line before
 the ``{"kernels": [...]}`` line, and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -283,6 +297,22 @@ SSM_SERVE = {"xlstm-350m": (0, "float32", 476_656_808),
 # Jamba's prefill attention layer (B, S, H, K, d): GQA 64 / 8, no
 # positions, no window
 JAMBA_PREFILL = (1, 2048, 64, 8, 128)
+# phase 17: OLMo-1B at full width and all 16 layers at train_4k's 4096
+# tokens, R = 2, adamw, ADPSGD, under the config's remat ("nothing"); the
+# per-replica batch is the least at which remat off's meta peak passes 80
+# GiB while remat "nothing" leaves 10 GiB of them free (meta, this
+# script's --remat-peaks: 85.45 and 39.08 GiB at 2; 56.97 and 34.87 at 1)
+REMAT_R, REMAT_BATCH, REMAT_SEQ = 2, 2, 4096
+REMAT_ARGV = ["--arch", "olmo-1b", "--backend", "vmap", "--no-reduced",
+              "--layers", "16", "--replicas", str(REMAT_R),
+              "--batch", str(REMAT_BATCH), "--seq", str(REMAT_SEQ),
+              "--warmup-sync", "2", "--p-init", "2", "--lr", "4e-4",
+              "--seed", "0", "--method", "adpsgd", "--steps", "6"]
+REMAT_TRAIN = (113, 1_176_764_416)     # leaves, params per replica
+REMAT_CARD_GIB, REMAT_FREE_GIB = 80, 10
+REMAT_PEAK_TOL = 0.05                  # the card's peak against the meta one
+REMAT_POLICIES = ("off", "nothing", "dots")
+REMAT_B_LAYERS = 2                     # (b): off / nothing / dots at 2 layers
 
 
 class CheckFailed(Exception):
@@ -719,9 +749,15 @@ def start_cpu_job(argv, threads: int = 1) -> dict:
     that its host work runs beside the card's phases; ``finish_cpu_job``
     collects it, and ``stop_cpu_jobs`` kills any still running."""
     import os
+    return start_job(argv, dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                                CUDA_VISIBLE_DEVICES="",
+                                OMP_NUM_THREADS=str(threads)))
+
+
+def start_job(argv, env) -> dict:
+    """Start ``python argv...`` in ``env`` from the checkout's root, its
+    output kept in temporary files (``finish_cpu_job`` reads them)."""
     import tempfile
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=str(threads))
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     proc = subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
                             stdout=out, stderr=err, text=True)
@@ -730,20 +766,30 @@ def start_cpu_job(argv, threads: int = 1) -> dict:
     return job
 
 
+def wait_job(job: dict, timeout: float = 600.0) -> int:
+    """Wait for a job to end (killed, exit code -9, if it outlives
+    ``timeout``), keeping when it ended; its exit code."""
+    if "ended" not in job:
+        try:
+            job["proc"].wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            job["proc"].kill()
+            job["proc"].wait()
+        job["ended"] = time.perf_counter()
+    return job["proc"].returncode
+
+
 def finish_cpu_job(job: dict, timeout: float = 600.0) -> tuple:
-    """Wait for a helper job: (exit code, stdout, stderr, seconds since it
-    started).  One that outlives ``timeout`` is killed (exit code -9)."""
-    try:
-        rc = job["proc"].wait(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        job["proc"].kill()
-        rc = job["proc"].wait()
+    """Wait for a helper job: (exit code, stdout, stderr, seconds from its
+    start to its end).  One that outlives ``timeout`` is killed (exit
+    code -9)."""
+    rc = wait_job(job, timeout)
     texts = []
     for f in (job["out"], job["err"]):
         f.seek(0)
         texts.append(f.read())
         f.close()
-    return rc, texts[0], texts[1], time.perf_counter() - job["t0"]
+    return rc, texts[0], texts[1], job["ended"] - job["t0"]
 
 
 def stop_cpu_jobs() -> None:
@@ -1441,7 +1487,8 @@ def phase_strategies() -> dict:
     check(set(snaps) <= set(hist.sync_steps), "S_k not at its snapshot step")
     check(all(r <= 1e-4 for r in rels), "fetched S_k differs from plain")
     check_sync_launches(out["launches"], hist.n_syncs)
-    results["dasgd"] = {k: out[k] for k in ("launches", "ms", "calls")}
+    results["dasgd"] = {k: out[k] for k in ("launches", "ms", "calls",
+                                            "peak_bytes")}
     results["dasgd"]["s_k_rel"] = rels
     results["dasgd"]["resume_ref"] = dict(resume_ref(engine, hist),
                                           snaps=snaps, applies=applies,
@@ -1745,13 +1792,105 @@ def phase_cnn() -> dict:
         del hist
     print("  FULLSGD at lr 0.05 by init seed: (step-1 loss, final loss) "
           + json.dumps(sweep))
-    grouped = check_grouped_on_W(adpsgd_W, "CNN W (adpsgd, 10gbps)", 34)
-    timing = phase_timing(adpsgd_W)
+    W = [x.cpu() for x in tree_leaves(adpsgd_W)]
     del adpsgd_W
     release()
     return {"launches": launches_all, "table": table, "seed_sweep": sweep,
-            "grad_rel": grad_rel, "grouped": grouped, "timing": timing,
+            "grad_rel": grad_rel, "W": W,
             "host_s": {f"{n}/{net}": v for (n, net), v in wall.items()}}
+
+
+def main_cnn() -> int:
+    """``--cnn PATH``: phase 8 in a process of its own on the card (the
+    script starts it beside phase 9): its results as JSON on the last
+    line, ADPSGD's final W (10 Gbps) to PATH."""
+    import torch
+    path = sys.argv[sys.argv.index("--cnn") + 1]
+    set_numerics()
+    out = phase_cnn()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    torch.save(out.pop("W"), path)
+    print(json.dumps(out, default=str))
+    return 0
+
+
+def start_cnn(path: str) -> dict:
+    """Start phase 8 (``--cnn``) on the card; ``finish_cnn`` collects it."""
+    import os
+    return start_job([str(ROOT / "chip_smoke.py"), "--cnn", path],
+                     dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+
+# beyond its max_memory_allocated, each process started beside phase 9 holds
+# its CUDA context and, in the CLI runs, NCCL's buffers
+CONTEXT_BYTES = 2**30
+CNN_BYTES = 2**30       # phase 8's CNN: widths 16 and 32, 16 images a replica
+
+
+def co_resident_check(main_path: dict, strategies: dict) -> dict:
+    """Phase 9 shares the card with phase 8 and phases 15 and 15b's CLI
+    runs.  Fail unless the card's free memory holds what the four may take
+    together: phase 9's resumed runs at their peaks in phases 3 and 7
+    (dasgd); each CLI run (phase 3's model on the mesh, 4 steps) at phase
+    3's peak and 10 % (the mesh's buckets: +5 % in phase 15); the CNN; a
+    context each for the three new processes."""
+    import torch
+    free, total = torch.cuda.mem_get_info()
+    p3 = main_path["peak_bytes"]
+    need = {"phase 9": max(p3, strategies["dasgd"]["peak_bytes"]),
+            "CLI runs": 2 * int(1.1 * p3), "phase 8": CNN_BYTES,
+            "contexts": 3 * CONTEXT_BYTES}
+    print(f"  beside phase 9 on the card: needs {need} B, together "
+          f"{sum(need.values())} B; free {free} of {total} B")
+    check(sum(need.values()) <= free,
+          "the card cannot hold phase 9 and the three processes beside it")
+    return dict(need, free=free)
+
+
+def least_free(every: float = 0.2):
+    """Sample the card's free memory over every process
+    (``torch.cuda.mem_get_info``) every ``every`` s in a thread; the
+    function returned stops it and gives the least seen (bytes)."""
+    import threading
+    import torch
+    stop, seen = threading.Event(), [torch.cuda.mem_get_info()[0]]
+
+    def sample():
+        while not stop.wait(every):
+            seen.append(torch.cuda.mem_get_info()[0])
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+
+    def end() -> int:
+        stop.set()
+        thread.join()
+        return min(seen)
+    return end
+
+
+def finish_cnn(job: dict, path: str) -> dict:
+    """Phase 8's process: its output printed, exit 0, its result; then,
+    in this process (the card its own again: call it after the other card
+    jobs have ended), the grouped kernel against the plain
+    version on ADPSGD's final W and one sync of it timed."""
+    import torch
+    rc, stdout, stderr, wall = finish_cpu_job(job)
+    lines = stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        print(ln)
+    print(f"  phase 8 ran in a process of its own: exit {rc}, collected "
+          f"{wall:.1f} s after its start")
+    check(rc == 0, "phase 8 failed:\n" + stdout[-3000:] + stderr[-3000:])
+    out = json.loads(lines[-1])
+    print(f"  phase 8's max_memory_allocated={out['peak_bytes']} B "
+          f"({out['peak_bytes'] / 2**30:.2f} GiB)")
+    W = [x.to(DEVICE) for x in torch.load(path)]
+    out["grouped"] = check_grouped_on_W(W, "CNN W (adpsgd, 10gbps)", 34)
+    out["timing"] = phase_timing(W)
+    del W
+    release()
+    return out
 
 
 # ------------------------------------------------------------------ phase 9
@@ -2080,39 +2219,46 @@ def check_mesh_launches(label: str, run: dict, engine, hist) -> None:
           f"{label}: launches {run['launches']} != {want}")
 
 
-def mesh_cli(extra=(), nproc: int = 1, steps: int = 4, out=None) -> dict:
-    """The training CLI under ``torch.distributed.run --standalone
-    --nproc-per-node nproc``: phase 3's arguments on the mesh, ``steps``
-    steps, ``extra`` flags (the placement), the history to ``out``."""
+def start_mesh_cli(extra=(), nproc: int = 1, steps: int = 4,
+                   out=None) -> dict:
+    """Start the training CLI under ``torch.distributed.run --standalone
+    --nproc-per-node nproc`` (on the card): phase 3's arguments on the
+    mesh, ``steps`` steps, ``extra`` flags (the placement), the history
+    to ``out``.  ``finish_mesh_cli`` collects and checks it."""
     import os
     argv = on_mesh(MAIN_ARGV, steps=steps) + list(extra)
     if out is not None:
         argv += ["--out", str(out)]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+    cmd = ["-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(nproc), "-m", "repro_torch.launch.train",
            *argv]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, env=env, cwd=str(ROOT), capture_output=True,
-                         text=True, timeout=600)
-    dt = time.perf_counter() - t0
-    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
-    print(f"  CLI under the launcher ({dt:.1f} s, exit {res.returncode}): "
-          f"{' '.join(cmd[1:])}")
+    job = start_job(cmd, dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    job.update(cmd=cmd, extra=list(extra))
+    return job
+
+
+def finish_mesh_cli(job: dict) -> dict:
+    """Wait for ``start_mesh_cli``'s run: exit 0, the mesh's describe()
+    over NCCL printed, and its placement."""
+    rc, stdout, stderr, dt = finish_cpu_job(job)
+    lines = [ln for ln in stdout.splitlines() if ln.strip()]
+    print(f"  CLI under the launcher ({dt:.1f} s since its start, exit "
+          f"{rc}): {' '.join(job['cmd'])}")
     for ln in lines:
         print(f"    {ln}")
-    check(res.returncode == 0, f"the CLI under torch.distributed.run "
-                               f"failed:\n{res.stderr[-3000:]}")
+    check(rc == 0, f"the CLI under torch.distributed.run failed:\n"
+                   f"{stderr[-3000:]}")
     check(any("'backend': 'mesh'" in ln and "'process_group': 'nccl'" in ln
               for ln in lines), "the CLI did not print the mesh's describe()")
+    extra = job["extra"]
     if "--placement" in extra:
-        placement = extra[list(extra).index("--placement") + 1]
+        placement = extra[extra.index("--placement") + 1]
         check(any(f"'placement': '{placement}'" in ln for ln in lines),
               f"the CLI did not run placement {placement}")
-    return {"seconds": dt, "exit": res.returncode, "lines": lines}
+    return {"seconds": dt, "exit": rc, "lines": lines}
 
 
-def phase_mesh(refs: dict) -> dict:
+def phase_mesh(refs: dict, cli: dict) -> dict:
     """The mesh backend over NCCL at world 1 on the card: one NCCL rank
     in this process (``launch/mesh.py::init_group``; the CLI's own group
     below); phase 3's ADPSGD, phase 3b's qsgd_periodic and phase 7's dasgd
@@ -2124,7 +2270,8 @@ def phase_mesh(refs: dict) -> dict:
     DaSGD's snapshot and apply: one each); the sync on an 8-leaf tree
     (the CNN's leaf shapes) to show the count does not follow the
     leaves; the sync's time beside the vmap sync's (host clock) and its
-    kernel part by CUDA events; then the CLI under the launcher."""
+    kernel part by CUDA events; then the CLI under the launcher
+    (``cli``, from ``start_mesh_cli``, started with phase 9)."""
     import torch
     import torch.distributed as dist
     from repro_torch.backends import make_backend
@@ -2180,14 +2327,14 @@ def phase_mesh(refs: dict) -> dict:
     finally:
         dist.destroy_process_group()
     release()
-    out["cli"] = mesh_cli()
+    out["cli"] = finish_mesh_cli(cli)
     return out
 
 
 TP_FLAGS = ["--placement", "replica_tp", "--model-parallel"]
 
 
-def phase_mesh_tp(refs: dict, ddp: dict) -> dict:
+def phase_mesh_tp(refs: dict, ddp: dict, cli: dict) -> dict:
     """The mesh's ``replica_tp`` placement over NCCL at world 1 (one GPU:
     a model axis of 1, every replica's forward and backward on DTensors
     over a one-rank model mesh): phase 3's ADPSGD, phase 3b's
@@ -2197,8 +2344,9 @@ def phase_mesh_tp(refs: dict, ddp: dict) -> dict:
     model / world) and the DTensor collectives of a local step, the local
     step's and the sync's ms beside ``replica_ddp``'s (phase 15, ``ddp``)
     and vmap's, the peak memory; then the CLI under the launcher with
-    ``--placement replica_tp``, and, on a host of two GPUs or more, the
-    CLI on two ranks of one replica (``tp_multi_gpu``)."""
+    ``--placement replica_tp`` (``cli``, started with phase 9), and, on a
+    host of two GPUs or more, the CLI on two ranks of one replica
+    (``tp_multi_gpu``)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_mod
@@ -2245,7 +2393,7 @@ def phase_mesh_tp(refs: dict, ddp: dict) -> dict:
     finally:
         dist.destroy_process_group()
     release()
-    out["cli"] = mesh_cli(TP_FLAGS + ["1"])
+    out["cli"] = finish_mesh_cli(cli)
     out["multi_gpu"] = tp_multi_gpu(refs["adpsgd"])
     return out
 
@@ -2269,7 +2417,8 @@ def tp_multi_gpu(ref: dict, steps: int = 16) -> dict:
     out = {"ran": True, "gpus": n}
     for nproc in (2, 4) if n >= 4 else (2,):
         path = Path(tempfile.mkdtemp()) / "hist.json"
-        res = mesh_cli(TP_FLAGS + ["2"], nproc=nproc, steps=steps, out=path)
+        res = finish_mesh_cli(start_mesh_cli(TP_FLAGS + ["2"], nproc=nproc,
+                                             steps=steps, out=path))
         got = json.loads(path.read_text())
         rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
                                                    ref["losses"])]
@@ -3132,6 +3281,158 @@ def phase_dryrun(card: str, jobs: dict) -> dict:
             "dryrun": sub, "launches": launches}
 
 
+def remat_meta_peaks(layers: int = 16) -> dict:
+    """Phase 17's local step (``launch/steps.py::make_steps``; OLMo-1B at
+    full width and ``layers`` layers, R x batch x seq of ``REMAT_ARGV``)
+    counted on meta tensors (``launch/dryrun.py::analyze``) with remat
+    off and "nothing": each one's peak bytes and FLOPs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, specs, steps
+    run = get_config("olmo-1b")
+    out = {}
+    for policy in ("off", "nothing"):
+        cfg = dataclasses.replace(run.model, max_seq_len=REMAT_SEQ,
+                                  n_layers=layers, remat=policy != "off")
+        fns = steps.make_steps(run.replace(model=cfg))
+        W = specs.abstract_params(cfg, n_replicas=REMAT_R)
+        opt = specs.abstract_opt_state(fns["optimizer"], W, True)
+        batch = {"tokens": torch.empty((REMAT_R, REMAT_BATCH, REMAT_SEQ),
+                                       dtype=torch.int32, device="meta")}
+        _, rec = dryrun.analyze(fns["local_step"], (W, opt, batch, 4e-4))
+        out[policy] = {"peak_bytes": rec["memory"]["peak_bytes"],
+                       "flops": rec["aten_flops_per_chip"],
+                       "build_s": rec["build_s"]}
+    return out
+
+
+def main_remat_peaks() -> int:
+    """``--remat-peaks``: ``remat_meta_peaks()`` as JSON (``start_cpu_job``
+    runs it beside the card's phases)."""
+    print(json.dumps(remat_meta_peaks()))
+    return 0
+
+
+def remat_policies() -> dict:
+    """(b) One replica's loss and gradients (``core/averaging.py::
+    value_and_grad``, as the local step takes them) of OLMo-1B at full
+    width and ``REMAT_B_LAYERS`` layers on one batch of REMAT_BATCH x 4096
+    tokens, the same parameters, under remat off, "nothing" and "dots":
+    the losses and every gradient leaf bitwise equal, the peaks above the
+    memory allocated before ordered nothing < dots < off."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import averaging as avg
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.steps import make_loss_fn
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    base = dataclasses.replace(get_config("olmo-1b").model,
+                               max_seq_len=REMAT_SEQ,
+                               n_layers=REMAT_B_LAYERS)
+    params = M.init_params(0, base, device=DEVICE)
+    batch = SyntheticTokens(base.vocab_size, REMAT_SEQ,
+                            n_samples=REMAT_BATCH * 64, seed=0).batches(
+        n_replicas=1, per_replica_batch=REMAT_BATCH, device=DEVICE)(0)
+    batch = {k: v[0] for k, v in batch.items()}
+
+    def cfg_of(policy):
+        if policy == "off":
+            return dataclasses.replace(base, remat=False)
+        return dataclasses.replace(base, remat=True, remat_policy=policy)
+
+    avg.value_and_grad(make_loss_fn(cfg_of("off")), params, batch)  # warm
+    got = {}
+    for policy in REMAT_POLICIES:
+        loss_fn = make_loss_fn(cfg_of(policy))
+        release()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, _, grads = avg.value_and_grad(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - before
+        got[policy] = (loss, tree_leaves(grads), peak, ms)
+        print(f"  (b) remat {policy}: loss {float(loss)!r}, peak above the "
+              f"{before} B before it {peak} B ({peak / 2**30:.2f} GiB), "
+              f"{ms:.3f} ms")
+    loss0, grads0 = got["off"][:2]
+    equal = {}
+    for policy in ("nothing", "dots"):
+        loss, grads = got[policy][:2]
+        equal[policy] = bool(torch.equal(loss, loss0)) and all(
+            torch.equal(a, b) for a, b in zip(grads, grads0))
+    print(f"  (b) loss and all {len(grads0)} gradient leaves bitwise the "
+          f"remat-off ones: {equal}")
+    check(all(equal.values()), f"remat changed the gradients: {equal}")
+    peaks = {p: got[p][2] for p in REMAT_POLICIES}
+    check(peaks["nothing"] < peaks["dots"] < peaks["off"],
+          f"peaks not ordered nothing < dots < off: {peaks}")
+    out = {"peak_bytes": peaks, "ms": {p: got[p][3] for p in REMAT_POLICIES},
+           "bitwise": equal}
+    del params, batch, got, grads0, loss0
+    release()
+    return out
+
+
+def phase_remat(card: str, job: dict) -> dict:
+    """Phase 17: (a) OLMo-1B at full width and all 16 layers trained at
+    4096 tokens (``REMAT_ARGV``) under the config's remat: each sync's S_k
+    against the plain version, one mean_and_sqdev launch a sync; the
+    card's peak under 80 GiB and within 5 % of the meta count with remat
+    on, which remat off's (``job``, ``--remat-peaks``) exceeds; (b)
+    ``remat_policies``."""
+    import torch
+    from repro_torch.configs import get_config
+    rc, stdout, stderr, wall = finish_cpu_job(job)
+    check(rc == 0, "the meta count of phase 17 failed:\n" + stdout[-2000:]
+          + stderr[-2000:])
+    meta = json.loads(stdout.strip().splitlines()[-1])
+    off, on = meta["off"]["peak_bytes"], meta["nothing"]["peak_bytes"]
+    cfg = get_config("olmo-1b").model
+    print(f"  (a) the config's remat={cfg.remat} policy={cfg.remat_policy!r}"
+          f"; meta local step peak: remat off {off} B ({off / 2**30:.2f} "
+          f"GiB), remat nothing {on} B ({on / 2**30:.2f} GiB); FLOPs off "
+          f"{meta['off']['flops']:.6e}, nothing "
+          f"{meta['nothing']['flops']:.6e} (collected {wall:.1f} s after "
+          f"its start)")
+    check(cfg.remat and cfg.remat_policy == "nothing",
+          "OLMo-1B's config does not ask for remat nothing")
+    check(off > REMAT_CARD_GIB * 2**30,
+          f"remat off's meta peak {off} B does not pass {REMAT_CARD_GIB} GiB")
+    check(on <= (REMAT_CARD_GIB - REMAT_FREE_GIB) * 2**30,
+          f"remat nothing's meta peak {on} B leaves less than "
+          f"{REMAT_FREE_GIB} GiB free")
+    n_leaves, n_params = REMAT_TRAIN
+    probe = plain_sync_probe()
+    out = drive(REMAT_ARGV, callbacks=[probe], n_leaves_want=n_leaves)
+    engine, hist = out.pop("engine"), out.pop("hist")
+    check(out["n_params"] == n_params,
+          f"{out['n_params']} params per replica, not {n_params}")
+    out["s_k_rel"] = check_against_plain(hist, probe, out["launches"],
+                                         n_leaves)
+    peak = out["peak_bytes"]
+    rel = (on - peak) / peak
+    print(f"  (a) card: max_memory_allocated {peak} B ({peak / 2**30:.2f} "
+          f"GiB), meta with remat {on} B: {rel:+.4%}; step ms "
+          f"{out['ms'].get('step')!r}, sync ms {out['ms'].get('sync')!r}  "
+          f"card: {card}")
+    check(peak < REMAT_CARD_GIB * 2**30,
+          f"the card's peak {peak} B is not under {REMAT_CARD_GIB} GiB")
+    check(abs(rel) <= REMAT_PEAK_TOL,
+          f"meta peak {on} not within {REMAT_PEAK_TOL:.0%} of {peak}")
+    del engine, hist
+    release()
+    out["meta"] = meta
+    out["policies"] = remat_policies()
+    return out
+
+
 def serve_config():
     """OLMo-1B as published: all 16 layers, d_model 2048, vocab 50304."""
     import dataclasses
@@ -3444,6 +3745,15 @@ def serve_checks(cfg, B: int, S: int, P: int, G: int, inputs=None) -> dict:
             "route_flips_f32": flips32}
 
 
+def set_numerics() -> None:
+    """TF32 off, cuDNN deterministic and not benchmarking."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3463,6 +3773,8 @@ def main() -> int:
     uniform_job = start_cpu_job([str(ROOT / "chip_smoke.py"),
                                  "--cpu-uniform"], threads=4)
     dry_jobs = start_dryruns()
+    remat_job = start_cpu_job([str(ROOT / "chip_smoke.py"),
+                               "--remat-peaks"])
 
     def done(name: str) -> None:
         """Print and keep the seconds since the last phase ended."""
@@ -3471,6 +3783,11 @@ def main() -> int:
         since[0] = now
         print(f"  phase {name}: {phase_s[name]:.1f} s")
 
+    # the first activation checkpoint imports torch._dynamo (seconds):
+    # import it while phase 1 waits on nvcc
+    import threading
+    warm = threading.Thread(target=__import__, args=("torch._dynamo",))
+    warm.start()
     print(f"phase 1: environment  card: {card}")
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
@@ -3489,10 +3806,8 @@ def main() -> int:
                   r"(\d+) bytes spill (?:stores|loads)", line))]
     print(f"  register spills in the -Xptxas -v reports: {spills or 'none'}")
     check(not spills, f"a kernel spills registers: {spills}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    set_numerics()
+    warm.join()
     print(f"  allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}; cudnn "
           f"deterministic={torch.backends.cudnn.deterministic} "
@@ -3545,25 +3860,46 @@ def main() -> int:
     dasgd_ref = strategies["dasgd"].pop("resume_ref")
     hier_ref = strategies["hier_adpsgd"].pop("mesh_ref")
     done("7")
-    print(f"phase 8: the paper's CNN experiment, 9 strategies x 10 / 100 "
-          f"Gbps  card: {card}")
-    cnn = phase_cnn()
-    done("8")
+    # phase 8 and phases 15 and 15b's CLI runs run in processes of their
+    # own on the card beside phase 9 (its checkpoint I/O is host work) and
+    # end before phase 15: phase 9 alone is timed beside them
+    import os
+    import tempfile
     print(f"phase 9: checkpoint / resume, OLMo-1B full width, 4 layers, R=4 "
-          f"(no cut)  card: {card}")
+          f"(no cut)  card: {card}; phase 8 and the CLI runs of phases 15 "
+          f"and 15b in processes of their own beside it (phase 9's times "
+          f"are taken beside them, on a time-shared card)")
+    co_resident = co_resident_check(main_path, strategies)
+    fd, cnn_path = tempfile.mkstemp(prefix="chip_smoke_cnn_", suffix=".pt")
+    os.close(fd)
+    atexit.register(Path(cnn_path).unlink, missing_ok=True)
+    cnn_job = start_cnn(cnn_path)
+    clis = {"ddp": start_mesh_cli(), "tp": start_mesh_cli(TP_FLAGS + ["1"])}
+    least = least_free()
     resume = phase_resume(main_ref, dasgd_ref)
     done("9")
+    print(f"phase 8: the paper's CNN experiment, 9 strategies x 10 / 100 "
+          f"Gbps (run beside phase 9)  card: {card}")
+    for job in clis.values():
+        wait_job(job)
+    co_resident["least_free"] = least()
+    print(f"  the card's least free memory while the four processes shared "
+          f"it: {co_resident['least_free']} B "
+          f"({co_resident['least_free'] / 2**30:.2f} GiB)")
+    cnn = finish_cnn(cnn_job, cnn_path)
+    resume["co_resident"] = co_resident
+    done("8")
     print(f"phase 15: the mesh backend over NCCL (world 1), OLMo-1B full "
           f"width, 4 layers, R=4, against phases 3, 3b and 7  card: {card}")
     refs = {"adpsgd": main_ref, "qsgd_periodic": qp_ref,
             "dasgd": dasgd_ref, "hier_adpsgd": hier_ref}
-    mesh = phase_mesh(refs)
+    mesh = phase_mesh(refs, clis["ddp"])
     release()
     done("15")
     print(f"phase 15b: the mesh's replica_tp placement over NCCL (world 1, "
           f"model axis 1, DTensor steps), OLMo-1B full width, 4 layers, "
           f"R=4, against phases 3, 3b, 7 and 15  card: {card}")
-    mesh_tp = phase_mesh_tp(refs, mesh)
+    mesh_tp = phase_mesh_tp(refs, mesh, clis["tp"])
     del main_ref, qp_ref, dasgd_ref, hier_ref, refs
     release()
     done("15b")
@@ -3611,6 +3947,12 @@ def main() -> int:
           f"  card: {card}")
     ssm_serving = phase_ssm_serving()
     done("14c")
+    print(f"phase 17: ADPSGD under remat, OLMo-1B full width and depth "
+          f"(16 layers), {REMAT_BATCH} x {REMAT_SEQ} tokens a replica, "
+          f"R={REMAT_R}, adamw; off / nothing / dots at {REMAT_B_LAYERS} "
+          f"layers  card: {card}")
+    remat = phase_remat(card, remat_job)
+    done("17")
 
     training = {"adpsgd": main_path, "qsgd_periodic": qp, "qsgd": qs}
     paths = dict(training, serving=serving, clock=clock, **strategies,
@@ -3619,7 +3961,7 @@ def main() -> int:
                  qwen_vl_training=qwen_vl, whisper_training=whisper,
                  vlm_audio_serving=vlm_audio_serving, xlstm_training=xlstm,
                  jamba_training=jamba, ssm_serving=ssm_serving, mesh=mesh,
-                 mesh_tp=mesh_tp, dryrun=dry)
+                 mesh_tp=mesh_tp, dryrun=dry, remat_training=remat)
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in COUNTS}
     print("launches by path: " + json.dumps(
@@ -3715,6 +4057,9 @@ def main() -> int:
         {k: v for k, v in mesh_tp.items() if k != "launches"}, default=str))
     print("summary: dry run " + json.dumps(
         {k: v for k, v in dry.items() if k != "launches"}, default=str))
+    print("summary: remat training " + json.dumps(
+        {k: remat[k] for k in ("ms", "peak_bytes", "n_syncs", "n_params",
+                               "s_k_rel", "meta", "policies")}))
     print("summary: phase seconds " + json.dumps(phase_s)
           + f" total {sum(phase_s.values()):.1f}")
     print("summary: clock " + json.dumps(
@@ -3771,4 +4116,6 @@ def main_tp_multi_gpu() -> int:
 if __name__ == "__main__":
     sys.exit(main_tp_multi_gpu() if "--tp-multi-gpu" in sys.argv[1:]
              else main_cpu_uniform() if "--cpu-uniform" in sys.argv[1:]
+             else main_remat_peaks() if "--remat-peaks" in sys.argv[1:]
+             else main_cnn() if "--cnn" in sys.argv[1:]
              else main())

@@ -104,8 +104,11 @@ class ModelConfig:
     encoder: Optional[EncoderConfig] = None
     vision: Optional[VisionStubConfig] = None
 
-    # numerics; remat / scan / sharding fields are the reference's compile
-    # and mesh knobs, carried so configs transfer field for field
+    # numerics.  remat / remat_policy are honoured by a training forward
+    # (models/model.py::remat_regions); scan_layers sets the grouping of
+    # the checkpoints (the port loops over layers); the sharding fields
+    # are the reference's mesh knobs, carried so configs transfer field
+    # for field
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     use_flash: bool = False
@@ -140,8 +143,10 @@ class ModelConfig:
         """(prefix_len, period, n_groups) of the reference's ``lax.scan``
         over layers, or None: layers [prefix:] are n_groups repetitions
         of a ``period``-long block pattern with one parameter structure
-        per slot.  The port runs a Python loop over layers; the dry run
-        reads this to extrapolate a layer-cut build to full depth."""
+        per slot.  The port runs a Python loop over layers; under
+        ``remat`` each prefix layer and each group is one checkpoint, and
+        the dry run cuts a build at whole groups to extrapolate it to
+        full depth."""
         if not self.scan_layers:
             return None
         period = len(self.layer_pattern) if self.layer_pattern else 1

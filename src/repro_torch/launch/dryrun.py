@@ -27,7 +27,8 @@ dispatch mode, sees every aten op a rank runs on its local tensors
 (DTensor ops are left to DTensor, which runs them as local ops): FLOPs by
 ``FlopCounterMode``'s formulas, bytes as each op's inputs read and outputs
 written (eager PyTorch runs unfused, so this is its traffic), the live
-bytes of the tensors the program creates (their peak), the collectives
+bytes of the tensors the program creates (their peak, with the
+temporaries of ``_WORKSPACE``'s kernels), the collectives
 (DTensor's functional ones and the backend's own c10d calls) priced with
 the reference's ring factors by type and by mesh axis, and each kernel
 call's bytes and operations (``kernels/cost.py``; the kernels do not
@@ -137,6 +138,14 @@ _METADATA = {_aten.is_contiguous.default, _aten.is_contiguous.memory_format,
 # ops that allocate without writing, or alias: no bytes moved
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
                "new_empty_strided", "detach", "alias", "lift_fresh", "set_"}
+# ops whose CUDA kernels allocate a temporary the size of their first
+# argument and free it before they return, which no dispatch shows:
+# ATen's softmax_backward_cuda_out computes ``grad * output`` first,
+# logsumexp_out_impl ``self - amax(self)``.  On the H100 each raised
+# ``max_memory_allocated`` by exactly that (chip_smoke.py phase 17).
+# Other kernels' internal workspaces (cuBLAS's, cuDNN's, NCCL's) are not
+# modelled
+_WORKSPACE = {"_softmax_backward_data", "logsumexp"}
 # (namespace, op name) -> the reference's collective name
 _COLLECTIVES = {
     ("_c10d_functional", "all_reduce"): "all-reduce",
@@ -298,6 +307,10 @@ class CostMode(TorchDispatchMode):
             self.bytes_by_op[name] += n
         if not func.is_view:
             self._track(out)
+        if name in _WORKSPACE:
+            t = args[0]
+            self.peak = max(self.peak,
+                            self.live + t.numel() * t.element_size())
         return out
 
 
@@ -761,19 +774,24 @@ def _n_chips(multi_pod: bool) -> int:
 
 def _corrected_analysis(run, shape, prog: str, multi_pod: bool
                         ) -> Optional[Dict[str, Any]]:
-    """The record of ``prog`` at full depth from two cut depths (the
-    reference's anchors: prefix + P and prefix + 2P layers of the
-    config's ``scan_grouping``), or None where it has none."""
+    """The record of ``prog`` at full depth from two cut depths of whole
+    groups of the config's ``scan_grouping`` (prefix + n·P and prefix +
+    (n + 1)·P layers), or None where it has none.  The reference's anchors
+    are n = 1; under ``remat`` a group of P > 1 layers is one checkpoint
+    only where the cut keeps two groups or more (as the reference scans
+    them), so there n = 2, and each cut build checkpoints as the whole
+    model does."""
     cfg = run.model
     g = cfg.scan_grouping()
     if g is None:
         return None
     prefix, P, _ = g
-    L1, L2 = prefix + P, prefix + 2 * P
+    n = 2 if cfg.remat and P > 1 else 1
+    L1, L2 = prefix + n * P, prefix + (n + 1) * P
     if L2 >= cfg.n_layers:
         return None
     small = [analyze_program(dataclasses.replace(run, model=dataclasses.replace(
-        cfg, n_layers=L, scan_layers=False)), shape, prog, multi_pod)
+        cfg, n_layers=L)), shape, prog, multi_pod)
         for L in (L1, L2)]
     return _extrapolate_record(small, (L1, L2), cfg.n_layers,
                                _n_chips(multi_pod))

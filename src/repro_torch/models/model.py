@@ -14,12 +14,16 @@ A batch is a dict with keys by family:
   frames        (B,T,D)                       — audio frontend stub (forward)
   encoder_out   (B,T,D)                       — the encoder's output (decode)
 For decode steps it carries a single token column (B,1).  The reference's
-``lax.scan`` over layers and its rematerialisation are compile and memory
-devices, not numerics; here the layers run in a plain Python loop.
+``lax.scan`` over layers is a compile device; here the layers run in a
+plain Python loop.  Its rematerialisation is honoured: under
+``cfg.remat`` a training forward runs each prefix layer, and each group of
+``cfg.scan_grouping()``, under one activation checkpoint
+(``transformer.py::remat_call``), where the reference's ``jax.checkpoint``
+stands; the numbers are the same with it or without.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -104,18 +108,50 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward.  Returns (logits (B,S,V), aux losses: each
     MoE layer's summed over the layers, in layer order).  S includes a
-    vision prefix where the batch carries one."""
+    vision prefix where the batch carries one.  With ``cfg.remat`` and
+    grad enabled, each of ``remat_regions(cfg)`` runs under one checkpoint
+    of ``cfg.remat_policy``: the residual is kept at the reference's
+    boundaries and the rest is recomputed in the backward."""
     x, pos, mrope = _embed_inputs(params, batch, cfg)
     enc_out = _encode_cross(params, batch, cfg)
+
+    def run_layers(x, lo: int, hi: int):
+        auxes = []
+        for i in range(lo, hi):
+            blk = params["blocks"][i]
+            x, aux, _ = T.block_forward(
+                blk, x, cfg, i, positions=pos,
+                cross_kv=_layer_cross_kv(blk, enc_out, cfg), mrope_pos=mrope)
+            auxes.append(aux)
+        return x, auxes
+
     aux_total: Dict[str, torch.Tensor] = {}
-    for i, blk in enumerate(params["blocks"]):
-        x, aux, _ = T.block_forward(
-            blk, x, cfg, i, positions=pos,
-            cross_kv=_layer_cross_kv(blk, enc_out, cfg), mrope_pos=mrope)
-        for k, v in aux.items():
-            aux_total[k] = aux_total.get(k, 0.0) + v
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lo, hi in (remat_regions(cfg) if remat else [(0, cfg.n_layers)]):
+        if remat:
+            x, auxes = T.remat_call(run_layers, cfg.remat_policy, x, lo, hi)
+        else:
+            x, auxes = run_layers(x, lo, hi)
+        for aux in auxes:
+            for k, v in aux.items():
+                aux_total[k] = aux_total.get(k, 0.0) + v
     x = L.norm_forward(params["final_norm"], x, cfg)
     return _lm_head(params, x, cfg), aux_total
+
+
+def remat_regions(cfg: ModelConfig) -> List[Tuple[int, int]]:
+    """The layer ranges [lo, hi) that each run under one checkpoint, as
+    the reference's forward places ``jax.checkpoint``: each of the
+    ``scan_grouping()``'s prefix layers (every layer where it is None)
+    alone, then its ``n_groups`` groups of ``period`` layers."""
+    grouping = cfg.scan_grouping()
+    prefix = cfg.n_layers if grouping is None else grouping[0]
+    out = [(i, i + 1) for i in range(prefix)]
+    if grouping is not None:
+        _, period, n_groups = grouping
+        out += [(prefix + g * period, prefix + (g + 1) * period)
+                for g in range(n_groups)]
+    return out
 
 
 def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],

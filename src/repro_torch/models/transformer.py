@@ -172,21 +172,81 @@ def encoder_forward(p: Params, frames: torch.Tensor,
     """frames: (B,T,D) post-frontend embeddings (the stub).  Sinusoidal
     positions, then each block: bidirectional attention (``_sdpa`` under an
     all-true mask; never flash, as in the reference) and the MLP, each
-    pre-norm with a plain residual; the final norm.  The reference's scan
-    and remat over the blocks are compile and memory devices; a Python
-    loop computes the same."""
+    pre-norm with a plain residual; the final norm.  Where the reference
+    scans the blocks under ``jax.checkpoint`` (``cfg.remat`` and
+    ``cfg.scan_layers``, two blocks or more), each block runs under its
+    own checkpoint that saves nothing, whatever ``cfg.remat_policy`` is;
+    otherwise, and with grad disabled, a plain loop."""
     e, ecfg = cfg.encoder, _encoder_cfg(cfg)
     B, T, D = frames.shape
     dh = D // e.n_heads
     x = frames + L.sinusoidal_embedding(T, D, frames.device).to(
         frames.dtype)[None]
     mask = torch.ones((B, T, T), dtype=torch.bool, device=frames.device)
-    for blk in p["blocks"]:
+
+    def block(x, blk):
         h = L.norm_forward(blk["norm1"], x, ecfg)
         q, k, v = (L.dense(blk["attn"][w], h).reshape(B, T, e.n_heads, dh)
                    for w in ("wq", "wk", "wv"))
         o = L._sdpa(q, k, v, mask)
         x = x + L.dense(blk["attn"]["wo"], o.reshape(B, T, D))
         h = L.norm_forward(blk["norm2"], x, ecfg)
-        x = x + L.mlp_forward(blk["mlp"], h, ecfg)
+        return x + L.mlp_forward(blk["mlp"], h, ecfg)
+
+    remat = (cfg.remat and cfg.scan_layers and len(p["blocks"]) >= 2
+             and torch.is_grad_enabled())
+    for blk in p["blocks"]:
+        x = remat_call(block, "nothing", x, blk) if remat else block(x, blk)
     return L.norm_forward(p["final_norm"], x, ecfg)
+
+
+# the ops whose outputs the "dots" policy saves, as jax's dots_saveable
+# saves every dot_general: what dense, einsum and bmm lower to
+DOT_OPS = ("mm", "addmm", "bmm", "baddbmm", "addbmm", "mv", "dot")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep each of ``DOT_OPS``' outputs, recompute the
+    rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op._schema.name.split("::")[1] in DOT_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn, policy: str, *args):
+    """``fn(*args)`` under one activation checkpoint (non-reentrant, so
+    ``torch.autograd.grad`` may take it): the outputs of its ops are not
+    kept for the backward but computed again there, from ``args`` and
+    what ``fn`` closes over.  ``policy`` is ``cfg.remat_policy``:
+    "nothing" saves nothing inside (jax's ``nothing_saveable``), "dots"
+    saves the outputs of ``DOT_OPS`` (``dots_saveable``).  The recompute
+    runs under the torch-function modes of the forward it repeats (the
+    ``replica_tp`` step's ``WholeWhereRefused``), which the backward is
+    not under; it reads them with torch's private
+    ``_get_current_function_mode_stack``, the same in torch 2.11 and
+    2.13.  No forward draws random numbers, so no generator state is kept."""
+    import contextlib
+    from torch.overrides import _get_current_function_mode_stack
+    from torch.utils import checkpoint as ckpt
+    if policy not in ("nothing", "dots"):
+        raise ValueError(f"remat_policy {policy!r}: nothing | dots")
+    modes = _get_current_function_mode_stack()
+
+    @contextlib.contextmanager
+    def under_modes(inner):
+        with contextlib.ExitStack() as stack:
+            for mode in modes:
+                stack.enter_context(mode)
+            stack.enter_context(inner)
+            yield
+
+    def contexts():
+        forward, recompute = (
+            ckpt.create_selective_checkpoint_contexts(_save_dots)
+            if policy == "dots"
+            else (contextlib.nullcontext(), contextlib.nullcontext()))
+        return forward, under_modes(recompute)
+
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=contexts)

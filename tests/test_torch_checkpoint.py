@@ -407,3 +407,35 @@ def test_cross_framework_resume(olmo, way):
     for g, w in zip(W, want):
         np.testing.assert_allclose(np.asarray(g), np.asarray(w),
                                    atol=0.05 * OLMO_LR, rtol=0)
+
+
+def test_archive_reads_are_np_loads(tmp_path):
+    """The archive reader (a stored member straight into its array, a few
+    members at once) gives ``np.load``'s arrays for what ``np.savez``
+    writes: C and Fortran order, 0-d, empty, several dtypes; a flipped
+    byte fails the member's CRC-32, and a compressed archive is refused."""
+    import zipfile
+    rng = np.random.RandomState(0)
+    tree = {"w": rng.randn(3, 5).astype(np.float32),
+            "f": np.asfortranarray(rng.randn(4, 6)),
+            "s": [np.float32(2.5), np.array(7, dtype=np.int64)],
+            "e": np.zeros((0, 3), np.int8)}
+    path = str(tmp_path / "a.npz")
+    np.savez(path, **io._flatten(tree))
+    got = io._flatten(io._read_npz(path, torch.device("cpu")))
+    with np.load(path) as z:
+        want = {k: z[k] for k in z.files}
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k].numpy().dtype == v.dtype and \
+            np.array_equal(got[k].numpy(), v), k
+    raw = bytearray(open(path, "rb").read())
+    at = raw.find(tree["w"].tobytes())
+    raw[at + 3] ^= 1
+    open(path, "wb").write(bytes(raw))
+    with pytest.raises(zipfile.BadZipFile, match="CRC"):
+        io._read_npz(path, torch.device("cpu"))
+    packed = str(tmp_path / "c.npz")
+    np.savez_compressed(packed, **io._flatten(tree))
+    with pytest.raises(ValueError, match="compressed"):
+        io._read_npz(packed, torch.device("cpu"))

@@ -298,6 +298,65 @@ def test_depth_correction_is_exact_for_a_dense_model():
     assert corr["memory"] == full["memory"]
 
 
+def test_depth_correction_cuts_remat_groups_whole():
+    """A scanned, checkpointed 8-layer reduced xLSTM (mlstm / slstm: groups
+    of 2, each one checkpoint): the cut builds keep two and three whole
+    groups, and their line gives the 8-layer build's counts and peak."""
+    run = get_config("xlstm-350m")
+    cfg = dataclasses.replace(reduced(run.model, max_seq_len=S), n_layers=8,
+                              scan_layers=True, remat=True)
+    run = run.replace(model=cfg)
+    assert cfg.scan_grouping() == (0, 2, 4)
+    shape = InputShape("t", 16, 32, "train")
+    full = dryrun.analyze_program(run, shape, "local_step")
+    corr = dryrun._corrected_analysis(run, shape, "local_step", False)
+    assert corr["depths"] == [4, 6]
+    for k in ("flops_per_chip", "hbm_bytes_per_chip",
+              "collective_bytes_per_chip", "io_bytes_per_chip"):
+        assert corr[k] == pytest.approx(full[k], rel=1e-9), k
+    assert corr["memory"] == full["memory"]
+
+
+def test_remat_adds_one_forward_and_lowers_the_peak():
+    """OLMo-1B at full width, 2 layers, one replica of 1 x 4096 tokens, on
+    meta: remat "nothing" adds one forward of the layers, less what the
+    backward does not read, to the local step's FLOPs (within 1 %), and
+    lowers its peak."""
+    from repro_torch.models import model as M
+    base = get_config("olmo-1b")
+    recs = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(base.model, n_layers=2, remat=remat)
+        fns = steps.make_steps(base.replace(model=cfg))
+        mW = specs.abstract_params(cfg, n_replicas=1)
+        mopt = specs.abstract_opt_state(fns["optimizer"], mW, stacked=True)
+        mbatch = {"tokens": torch.empty((1, 1, 4096), dtype=torch.int32,
+                                        device="meta")}
+        recs[remat] = dryrun.analyze(fns["local_step"],
+                                     (mW, mopt, mbatch, LR))[1]
+    # one forward of the layers: a forward's FLOPs less its 0-layer part
+    fwd = {}
+    for n in (0, 2):
+        cfg = dataclasses.replace(base.model, n_layers=n, remat=False)
+        params = specs.abstract_params(cfg)
+        tokens = torch.empty((1, 4096), dtype=torch.int32, device="meta")
+        with torch.no_grad():
+            fwd[n] = dryrun.analyze(
+                lambda p, t, c=cfg: M.forward(p, {"tokens": t}, c),
+                (params, tokens))[1]["flops_per_chip"]
+    # the recompute stops once it has the last tensor the backward needs,
+    # so a layer's last product (the MLP's down projection, 2·T·D·F) is
+    # not recomputed, as the reference's recompute drops what its
+    # backward does not read
+    added = recs[True]["flops_per_chip"] - recs[False]["flops_per_chip"]
+    T, D, F = 4096, base.model.d_model, base.model.d_ff
+    assert added == pytest.approx(fwd[2] - fwd[0] - 2 * 2 * T * D * F,
+                                  rel=1e-2)
+    assert added > 0.75 * (fwd[2] - fwd[0])
+    assert recs[True]["memory"]["peak_bytes"] < \
+        recs[False]["memory"]["peak_bytes"]
+
+
 # ----------------------------------------------------- the fake 2 x 2 mesh
 def test_fake_mesh_collectives_by_group():
     """Data 2 x model 2, reduced OLMo, R = 4 under ``replica_tp``: a local
@@ -364,3 +423,30 @@ def test_fsdp_sync_is_the_mesh_backends(pods):
         ["all-reduce", 4 * block, "pod" if pods > 1 else "self"],
         ["all-reduce", 4, "world"]]
     assert rec["io_bytes_per_chip"] == 2 * 4 * block + 4
+
+
+# each _WORKSPACE op beside an op of the same output that allocates nothing
+# inside its kernel
+_WORKSPACE_CASES = {
+    "_softmax_backward_data": (
+        lambda g, y: torch.ops.aten._softmax_backward_data(
+            g, y, 1, torch.float32),
+        lambda g, y: torch.mul(g, y)),
+    "logsumexp": (lambda g, y: torch.logsumexp(g, [1]),
+                  lambda g, y: torch.amax(g, 1)),
+}
+
+
+@pytest.mark.parametrize("op", sorted(dryrun._WORKSPACE))
+def test_workspace_op_raises_the_peak_by_its_first_argument(op):
+    """CostMode's peak for a ``_WORKSPACE`` op is the plain op's (same
+    output) and exactly the bytes of its first argument more."""
+    def peak(fn):
+        with dryrun.CostMode() as mode:
+            g = torch.empty(64, 96, device="meta")
+            y = torch.empty(64, 96, device="meta")
+            fn(g, y)
+        return mode
+    with_ws, plain = (peak(fn) for fn in _WORKSPACE_CASES[op])
+    assert with_ws.bytes_by_op[op] > 0
+    assert with_ws.peak - plain.peak == 64 * 96 * 4

@@ -121,7 +121,8 @@ def model_cfg(sc):
     if sc.get("model", "cnn").startswith("cnn"):
         return None
     arch = sc.get("arch", "olmo-1b")
-    return reduced(get_config(arch).model, max_seq_len=32)
+    return reduced(get_config(arch).model, max_seq_len=32,
+                   **sc.get("overrides", {}))
 
 
 def family_data(cfg, R):
@@ -557,9 +558,30 @@ def tp_fallback(sc):
             "whole": dict(b.whole)}
 
 
+def remat(sc):
+    """The scenario's run on each placement of ``sc["placements"]`` with
+    remat off and with each policy of ``sc["policies"]`` (the layers
+    grouped as ``scan_layers`` groups them; ``replica_tp`` on a model axis
+    of ``sc["mp"]``, ``replica_ddp`` on data ranks alone): {placement:
+    {policy or "off": its history}}."""
+    out = {}
+    for placement in sc["placements"]:
+        out[placement] = {}
+        for policy in ("off",) + tuple(sc["policies"]):
+            over = dict(scan_layers=True, remat=policy != "off")
+            if policy != "off":
+                over["remat_policy"] = policy
+            mp = sc["mp"] if placement == "replica_tp" else None
+            engine = make_engine(dict(sc, placement=placement, mp=mp,
+                                      overrides=over))
+            out[placement][policy] = history(engine, engine.run())
+    return out
+
+
 SCENARIOS = {"train": train, "counts": counts, "exchange": exchange,
              "inflight": inflight, "save_half": save_half, "resume": resume,
              "cli": cli, "topology": topology, "tp_fallback": tp_fallback,
+             "remat": remat,
              "adacomm_wall": adacomm_wall}
 
 
