@@ -1,0 +1,10 @@
+"""The median over the window's iterations of one iteration's ``backward``
+device time (``torch.autograd.grad``, remat's recompute included), summed
+over this process's replicas (rank 0 on several cards)."""
+from bench import phase_records
+
+LAYER, UNIT, MOVES = "local step", "ms", "train_tokens_per_s"
+
+
+def read(run):
+    return phase_records.median_per_iteration(run, ("backward",))

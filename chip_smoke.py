@@ -6,6 +6,7 @@
     python3 chip_smoke.py --cpu-uniform    # the helper: phase 2's CPU draw
     python3 chip_smoke.py --remat-peaks    # the helper: phase 17's meta peaks
     python3 chip_smoke.py --cnn PATH       # phase 8 in its own process
+    python3 chip_smoke.py --phases         # the phase recorder's checks
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``, one ``nvcc`` per source, all started together), holds each
@@ -4075,6 +4076,118 @@ def main() -> int:
     return 0
 
 
+PHASES_ARGV = ["--arch", "olmo-1b", "--backend", "vmap", "--no-reduced",
+               "--layers", "4",
+               "--replicas", "2", "--batch", "2", "--seq", "128",
+               "--warmup-sync", "2", "--p-init", "2", "--lr", "4e-4",
+               "--seed", "0", "--method", "adpsgd", "--steps", "8"]
+
+
+def phases_run(argv, recorder: bool) -> dict:
+    """``argv``'s engine: iterations 0-3 with its phase recorder off,
+    then (the recorder ``on`` if ``recorder``) one step and one sync
+    program dispatched by hand under ``torch.cuda.set_sync_debug_mode(
+    "error")``, then iterations 4-7 through ``engine.run``.  Returns the
+    engine, the synchronizing call the programs made (None if none) and
+    the records of iterations 4-7."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.launch import train
+    from repro_torch.strategies.base import STEP, SYNC
+
+    release()
+    engine, _ = train.build_engine(train.parse_args(argv))
+    engine.run(0, 4)
+    engine.phases.on = recorder
+    k, lr = 4, engine.lr_fn(4)
+    batch = engine.backend.local_replicas(engine.data_fn(k))
+    key = prng.fold_in(engine._base_key, k)
+    torch.cuda.synchronize()
+    refused = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for j, action in enumerate((STEP, SYNC)):
+            engine.W, engine.opt_state, _ = engine.strategy.dispatch(
+                action, engine.W, engine.opt_state, batch, lr,
+                prng.fold_in(key, j))
+    except RuntimeError as e:
+        import traceback
+        at = [f for f in traceback.extract_tb(e.__traceback__)
+              if "repro_torch" in f.filename][-1:]
+        refused = str(e).splitlines()[0] + "".join(
+            f" at {Path(f.filename).name}:{f.lineno}: {f.line}" for f in at)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    n0 = len(engine.phases.records)
+    engine.run(4, 4)
+    return {"engine": engine, "refused": refused,
+            "records": engine.phases.resolve()[n0:]}
+
+
+def phases_check(argv) -> dict:
+    """Recorder off, then on: the synchronizing calls of each program
+    pair, W, the optimizer state, the losses and S_k bitwise, and the
+    phases an iteration records with their device times."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    off = phases_run(argv, False)
+    e_off = off.pop("engine")
+    state = [x.cpu() for x in tree_leaves((e_off.W, e_off.opt_state))]
+    hist = e_off.history
+    want = (hist.losses, hist.s_k)
+    del e_off
+    on = phases_run(argv, True)
+    e_on = on.pop("engine")
+    got = [x.cpu() for x in tree_leaves((e_on.W, e_on.opt_state))]
+    bitwise = (len(got) == len(state)
+               and all(torch.equal(a, b) for a, b in zip(got, state))
+               and (e_on.history.losses, e_on.history.s_k) == want)
+    per_k = {}
+    for r in on["records"]:
+        c = per_k.setdefault(r.k, {})
+        c[r.name] = c.get(r.name, 0) + 1
+    ms = {}
+    for r in on["records"]:
+        ms.setdefault(r.name, []).append(
+            None if r.device_ms is None else round(r.device_ms, 3))
+    del e_on
+    release()
+    return {"refused_off": off["refused"], "refused_on": on["refused"],
+            "bitwise": bitwise, "phases_by_iteration": per_k,
+            "device_ms": ms}
+
+
+def main_phases() -> int:
+    """``python3 chip_smoke.py --phases``: the phase recorder
+    (``runtime/phases.py``) on the card, on OLMo-1B at full width cut to
+    4 layers, R = 2, ADPSGD, on the vmap backend and on a one-rank NCCL
+    mesh: with the recorder on, one step and one sync program run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (off too, as the
+    control); W, the optimizer state, the losses and S_k are bitwise the
+    same with the recorder on and off; the phases each iteration
+    records, with their device times; and ``by_phase`` of the timing
+    summary under ``--net real``."""
+    import torch
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    out = {"vmap": phases_check(PHASES_ARGV)}
+    mesh_mod.init_group(torch.device("cuda", 0))
+    out["mesh"] = phases_check(on_mesh(PHASES_ARGV))
+    engine, _ = train.build_engine(train.parse_args(
+        PHASES_ARGV + ["--net", "real"]))
+    out["by_phase"] = engine.run(0, 3).timing["by_phase"]
+    del engine
+    print(card_line())
+    print(json.dumps(out))
+    ok = all(out[b]["refused_on"] is None and out[b]["bitwise"]
+             for b in ("vmap", "mesh"))
+    return 0 if ok else 1
+
+
 def main_tp_multi_gpu() -> int:
     """``python3 chip_smoke.py --tp-multi-gpu`` on a host of two GPUs or
     more: the kernels built, phase 3's ADPSGD run on GPU 0 as the vmap
@@ -4118,4 +4231,5 @@ if __name__ == "__main__":
              else main_cpu_uniform() if "--cpu-uniform" in sys.argv[1:]
              else main_remat_peaks() if "--remat-peaks" in sys.argv[1:]
              else main_cnn() if "--cnn" in sys.argv[1:]
+             else main_phases() if "--phases" in sys.argv[1:]
              else main())

@@ -35,6 +35,8 @@ from repro_torch.backends import ops as collective_ops
 from repro_torch.backends.ops import CollectiveOp, InFlightOp
 from repro_torch.core import averaging as avg
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.runtime import phases as phases_mod
+from repro_torch.runtime.phases import UNRECORDED, PhaseRecorder
 from repro_torch.tree import tree_leaves, tree_map
 
 Pytree = Any
@@ -61,6 +63,7 @@ class ExecutionBackend:
         self.device = resolve_device(device)
         self.n_replicas: Optional[int] = None
         self.clock = None              # telemetry clock (runtime/clock.py)
+        self.phases = UNRECORDED       # phase spans (runtime/phases.py)
 
     def bind(self, n_replicas: int) -> None:
         self.n_replicas = int(n_replicas)
@@ -97,15 +100,28 @@ class ExecutionBackend:
         after lowering both work."""
         self.clock = clock
 
+    def set_phases(self, phases: PhaseRecorder) -> None:
+        """Bind the engine's ``runtime/phases.py`` recorder; ``timed``
+        binds it around every program it runs."""
+        self.phases = phases
+
     def timed(self, op: CollectiveOp, fn: Callable) -> Callable:
         """Wrap a program so each invocation reports one ``(compute_s,
         comm_s, bytes)`` record into the bound clock's Timeline.  Bytes
         are ``op.wire_bytes`` of the per-replica parameter count, read off
         the stacked first operand (this process's replicas) per call; the
         collective kind and group ride the op; ``overlap=True`` ops return
-        an ``InFlightOp``."""
+        an ``InFlightOp``.  The backend's phase recorder is the program's
+        ``runtime/phases.current()`` while it runs."""
 
         def wrapped(*args):
+            token = phases_mod.bound(self.phases)
+            try:
+                return run(*args)
+            finally:
+                phases_mod.unbound(token)
+
+        def run(*args):
             clock = self.clock
             if clock is None:
                 out = fn(*args)

@@ -32,7 +32,9 @@ their number does not depend on the number of leaves:
   ``replica_tp``, DTensor's collectives and each replica's gradient norm
   run over the model group); its per-replica metrics (a few scalars)
   are averaged by one separate small ``all_reduce`` (``_metrics_mean``,
-  the reference's tiny program off the step path);
+  the reference's tiny program off the step path; the phase
+  ``metrics_allreduce`` of ``runtime/phases.py``, where a rank waits for
+  the slowest);
 * the sync (``all_mean``): the fused mean + sqdev kernel in mode
   ``"mean"`` writes every leaf's chunk mean into one flat f32 buffer, the
   all-reduce bucket: one ``all_reduce`` (a sum) for all leaves, then the
@@ -40,7 +42,9 @@ their number does not depend on the number of leaves:
   reads it, writes the global mean w̄ into every local replica and gives
   Σ_i ||w_i − w̄||² over the chunk, and one scalar ``all_reduce`` gives
   S_k — two collectives a sync (three with ``sync_momentum``, whose
-  optimizer-state bucket is one more);
+  optimizer-state bucket is one more); the bucket's all-reduce is the
+  phase ``allreduce`` (on the plain route too, as in every bucket mean of
+  ``_global_means``);
 * ``full_step`` and ``qsgd_step``: the chunk's (dequantized) gradient
   sums and its metrics in one flat bucket, one ``all_reduce`` a step
   (the reference's mesh all-reduces QSGD's dequantized f32 gradients
@@ -338,8 +342,10 @@ class MeshBackend(ExecutionBackend):
 
     def _div(self, x: torch.Tensor, n: int) -> torch.Tensor:
         """x / n in place, a true division (on the card, dividing by a
-        Python number multiplies by its reciprocal)."""
-        return x.div_(x.new_tensor(float(n)))
+        Python number multiplies by its reciprocal).  The divisor is made
+        on x's device: a copy from the host would wait for x's stream."""
+        return x.div_(torch.full((), float(n), dtype=x.dtype,
+                                 device=x.device))
 
     def _all_mean_(self, x: torch.Tensor, group=None, n: int = 0
                    ) -> torch.Tensor:
@@ -357,7 +363,8 @@ class MeshBackend(ExecutionBackend):
         flat, views = _bucket([x.shape[1:] for x in leaves], leaves[0].device)
         for v, m in zip(views, avg.leaf_means(leaves)):
             v.copy_(m)
-        self._all_mean_(flat, group, n)
+        with self.phases.phase("allreduce"):
+            self._all_mean_(flat, group, n)
         return views
 
     @staticmethod
@@ -373,7 +380,8 @@ class MeshBackend(ExecutionBackend):
         keys = list(metrics)
         flat = torch.cat([metrics[k].detach().to(torch.float32).reshape(-1)
                           for k in keys])
-        self._all_mean_(flat)
+        with self.phases.phase("metrics_allreduce"):
+            self._all_mean_(flat)
         out, at = {}, 0
         for k in keys:
             v = metrics[k]
@@ -459,7 +467,8 @@ class MeshBackend(ExecutionBackend):
             if self.kernel_on(W):
                 mean, _ = kops.param_mean_and_sqdev_out(leaves, "mean")
                 kops.param_mean_and_sqdev_many(leaves, "mean", mean)
-                dist.all_reduce(mean, group=self.group)
+                with self.phases.phase("allreduce"):
+                    dist.all_reduce(mean, group=self.group)
                 sq, s_loc = kops.param_mean_and_sqdev_many(
                     leaves, "sync_to", None, mean, self.n_data)
                 s_loc = self._counted(sq, count, self.n_local, s_loc)

@@ -38,6 +38,7 @@ import torch.distributed as dist
 from torch.overrides import TorchFunctionMode
 
 from repro_torch.launch import sharding as shard_rules
+from repro_torch.runtime import phases
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 FALLBACK_OPS = ("convolution.default", "convolution_backward.default",
@@ -214,7 +215,8 @@ class ModelShards:
         """(loss, aux, grads) of one replica: ``live`` its local shards
         (fresh leaves requiring grad), each wrapped as a DTensor of its
         placement; the loss and aux come back whole and plain, the
-        gradients as local shards."""
+        gradients as local shards; the phases forward and backward in the
+        running program's ``runtime/phases.py`` recorder."""
         from torch.distributed.tensor import DTensor
         from torch.distributed.tensor.experimental import \
             implicit_replication
@@ -224,12 +226,15 @@ class ModelShards:
 
         def plain(v):
             return v.full_tensor() if isinstance(v, DTensor) else v
+        phase = phases.current().phase
         with implicit_replication():
-            with WholeWhereRefused(self._whole_calls):
-                loss, aux = loss_fn(tree_unflatten(live, dts), batch)
-            loss = plain(loss)
-            aux = {k: plain(v) for k, v in aux.items()}
-            grads = torch.autograd.grad(loss, leaves)
+            with phase("forward"):
+                with WholeWhereRefused(self._whole_calls):
+                    loss, aux = loss_fn(tree_unflatten(live, dts), batch)
+                loss = plain(loss)
+                aux = {k: plain(v) for k, v in aux.items()}
+            with phase("backward"):
+                grads = torch.autograd.grad(loss, leaves)
         return loss, aux, grads
 
     def grad_sqnorm(self, grads) -> torch.Tensor:

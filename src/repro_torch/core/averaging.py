@@ -19,6 +19,12 @@ each replica, and the step programs take ``tp`` (``backends/tp.py``'s
 ``ModelShards``): its ``value_and_grad`` runs the replica's forward and
 backward on DTensors, and its ``grad_sqnorm`` sums the gradient norm over
 the model group.
+
+The step programs mark three phases a replica in the recorder of the
+running program (``runtime/phases.py``; the backend binds it): ``forward``
+(the loss), ``backward`` (``torch.autograd.grad``, remat's recompute
+included) and ``optimizer`` (the update, and the gradient norm of the
+local step).
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.runtime import phases
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Pytree = Any
@@ -99,8 +106,11 @@ def value_and_grad(loss_fn: LossFn, params: Pytree, batch, tp=None):
     with torch.enable_grad():
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         if tp is None:
-            loss, aux = loss_fn(live, batch)
-            grads = torch.autograd.grad(loss, tree_leaves(live))
+            phase = phases.current().phase
+            with phase("forward"):
+                loss, aux = loss_fn(live, batch)
+            with phase("backward"):
+                grads = torch.autograd.grad(loss, tree_leaves(live))
         else:
             loss, aux, grads = tp.value_and_grad(loss_fn, live, batch)
     aux = {k: v.detach() for k, v in aux.items()}
@@ -113,7 +123,7 @@ def make_replica_step(loss_fn: LossFn, optimizer: Optimizer, tp=None):
 
     def one_replica(params, opt_state, batch, lr):
         loss, aux, grads = value_and_grad(loss_fn, params, batch, tp)
-        with torch.no_grad():
+        with torch.no_grad(), phases.current().phase("optimizer"):
             params, opt_state = optimizer.update(grads, opt_state, params, lr)
             if tp is None:
                 sq = sum(g.to(torch.float32).square().sum()
@@ -225,7 +235,7 @@ def make_full_step(loss_fn: LossFn, optimizer: Optimizer,
             replica_view(W, 0),
             [(g / n).to(p.dtype) for g, p in
              zip(g_sum, tree_leaves(replica_view(W, 0)))])
-        with torch.no_grad():
+        with torch.no_grad(), phases.current().phase("optimizer"):
             for r in range(R):
                 optimizer.update(g_mean, replica_view(opt_state, r),
                                  replica_view(W, r), lr)

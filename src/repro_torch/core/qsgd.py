@@ -30,6 +30,7 @@ from repro_torch.core.averaging import (Exchange, _mean_metrics, n_replicas,
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.runtime import phases
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 Pytree = Any
@@ -208,7 +209,7 @@ def make_qsgd_step(loss_fn, optimizer: Optimizer, bits: int = 8, *,
             replica_view(W, 0),
             [(g / n).to(p.dtype) for g, p in zip(g_sum, params0)])
         del g_sum
-        with torch.no_grad():
+        with torch.no_grad(), phases.current().phase("optimizer"):
             for r in range(R):
                 optimizer.update(g_mean, replica_view(opt_state, r),
                                  replica_view(W, r), lr)

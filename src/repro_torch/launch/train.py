@@ -9,8 +9,9 @@
 Runs on the card; ``--device cpu`` runs on the CPU.  ``--method`` offers
 every strategy of the reference, ``--backend`` the port's backends.
 ``--net`` binds a telemetry clock (``runtime/clock.py``): ``real`` times
-each program on the device, ``10gbps`` / ``100gbps`` / ``<x>gbps``
-simulate the paper's network.  ``--ckpt DIR`` writes a final
+each program on the device, and the phases inside them
+(``runtime/phases.py``; the timing line's ``phases``), ``10gbps`` /
+``100gbps`` / ``<x>gbps`` simulate the paper's network.  ``--ckpt DIR`` writes a final
 replica-averaged checkpoint; ``--ckpt-every N --ckpt-path DIR`` saves one
 every N steps (``--no-keep-replicas``: replica-averaged export
 checkpoints).  A run resumes through ``TrainerEngine.load_state``, as in
@@ -268,6 +269,11 @@ def report(args: argparse.Namespace, engine: TrainerEngine):
               f"compute={t['compute_s']:.3f}s comm={t['comm_s']:.3f}s "
               f"total={t['sim_wall_s']:.3f}s "
               f"bytes/node={t['bytes']:.3e}")
+        if t.get("by_phase"):
+            print("  phases (s; the device's time where the run is on "
+                  "the card): " + " ".join(
+                f"{n}={p.get('device_s', p['host_s']):.3f}s"
+                for n, p in t["by_phase"].items()))
     if args.ckpt:
         save_checkpoint(args.ckpt, final, step=args.steps,
                         controller_state=state)

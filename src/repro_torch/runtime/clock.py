@@ -37,6 +37,12 @@ equal real wall time and per-record values say they are estimates
 
 Clock state is training state (the time-based AdaComm schedule continues
 mid-block across a restore): ``state_dict`` / ``load_state_dict``.
+
+Under a ``WallClock`` (``times_device``) the engine switches its phase
+recorder on (``runtime/phases.py``: forward, backward and optimizer
+inside the step, the loop's data, keys, readback and observe, the mesh's
+all-reduces) and binds it to the Timeline, whose ``summary`` then sums
+the phases under ``by_phase``, beside ``by_program``.
 """
 from __future__ import annotations
 
@@ -113,6 +119,7 @@ class Timeline:
         self.comm_s = 0.0
         self.bytes = 0.0
         self.by_program: Dict[str, Dict[str, float]] = {}
+        self.phases = None           # the engine's PhaseRecorder, when on
 
     def record(self, t: ProgramTiming) -> None:
         self.records.append(t)
@@ -149,11 +156,14 @@ class Timeline:
         return self.compute_s + self.comm_s
 
     def summary(self) -> Dict[str, Any]:
-        return {"compute_s": self.compute_s, "comm_s": self.comm_s,
-                "total_s": self.total_s, "bytes": self.bytes,
-                "n_records": len(self.records),
-                "by_program": {k: dict(v)
-                               for k, v in self.by_program.items()}}
+        out = {"compute_s": self.compute_s, "comm_s": self.comm_s,
+               "total_s": self.total_s, "bytes": self.bytes,
+               "n_records": len(self.records),
+               "by_program": {k: dict(v)
+                              for k, v in self.by_program.items()}}
+        if self.phases is not None:
+            out["by_phase"] = self.phases.summary()
+        return out
 
 
 class Clock:
@@ -161,6 +171,7 @@ class Clock:
     ``measure`` (called by ``ExecutionBackend.timed`` wrappers)."""
 
     kind = "base"
+    times_device = False         # whether programs are timed on the device
 
     def __init__(self):
         self.timeline = Timeline()
@@ -237,6 +248,7 @@ class WallClock(Clock):
     actually made (the samples)."""
 
     kind = "wall"
+    times_device = True
 
     def __init__(self, *, sample_every: int = 1):
         super().__init__()

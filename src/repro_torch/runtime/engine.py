@@ -24,7 +24,14 @@ the same history; the checkpoint callback gathers the chunks
 
 A telemetry clock (``runtime/clock.py``) rides the backend, which wraps
 every program it lowers, and its Timeline rides the engine
-(``engine.timeline``; ``TrainHistory.timing``).  A small callback bus hangs
+(``engine.timeline``; ``TrainHistory.timing``).  The engine's phase
+recorder (``runtime/phases.py``, ``engine.phases``) reaches the programs
+through the backend too; the loop marks its own phases in it (``data``:
+the batch; ``keys``: the PRNG folds; ``readback``: the loss and S_k read
+to the host; ``observe``: the strategy's schedule and the callbacks).  It
+records under a clock that times programs on the device (``WallClock``,
+whose Timeline then sums the phases under ``by_phase``) and inside a
+``torch.profiler`` session.  A small callback bus hangs
 off the loop (variance probing, periodic eval, checkpoints); a run resumes
 from a checkpoint through ``TrainerEngine.load_state``
 (``checkpoint/io.py``).
@@ -44,6 +51,7 @@ from repro_torch.core import averaging as avg
 from repro_torch.core import prng
 from repro_torch.device import DeviceLike
 from repro_torch.runtime.clock import Clock, Timeline
+from repro_torch.runtime.phases import PhaseRecorder
 from repro_torch.strategies import CommunicationStrategy, make_strategy
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -213,6 +221,11 @@ class TrainerEngine:
         # unconditional: None also clears a clock that an earlier engine
         # left bound on a reused backend
         self.backend.set_clock(clock)
+        self.phases = PhaseRecorder(cuda=self.backend.device.type == "cuda")
+        self.phases.on = bool(getattr(clock, "times_device", False))
+        if self.phases.on:
+            self.timeline.phases = self.phases
+        self.backend.set_phases(self.phases)
         self.strategy = strategy
         self.strategy.compile(loss_fn, optimizer, backend=self.backend)
         self.strategy.bind_clock(clock)
@@ -316,41 +329,52 @@ class TrainerEngine:
         # per-step float(loss) would synchronize every step, so losses
         # stay device scalars until the run ends (same values)
         defer_loss = bool(getattr(self.clock, "defer_loss_readback", False))
+        phase = self.phases.phase
 
         def record_sync(at, lr_at, s_val, timing):
             """One sync into history, controller and callbacks, shared by
             the immediate ("s_k") and the overlapped ("s_k_at") paths."""
-            s_k = float(s_val)
-            self.strategy.observe(at, lr_at, s_k)
-            hist.s_k.append(s_k)
-            hist.sync_steps.append(at)
-            hist.period_history.append(self.strategy.period)
-            for cb in self.callbacks:
-                cb.on_sync(self, at, s_k, timing)
+            with phase("readback"):
+                s_k = float(s_val)
+            with phase("observe"):
+                self.strategy.observe(at, lr_at, s_k)
+                hist.s_k.append(s_k)
+                hist.sync_steps.append(at)
+                hist.period_history.append(self.strategy.period)
+                for cb in self.callbacks:
+                    cb.on_sync(self, at, s_k, timing)
 
         for k in range(start_step, stop):
+            self.phases.k = k
             lr = self.lr_fn(k)
             hist.lrs.append(lr)
-            batch = self.backend.local_replicas(self.data_fn(k))
-            step_key = prng.fold_in(self._base_key, k)
+            with phase("data"):
+                batch = self.backend.local_replicas(self.data_fn(k))
+            with phase("keys"):
+                step_key = prng.fold_in(self._base_key, k)
             step_info: Dict[str, Any] = {}
             if tl is not None:
                 tl.step = k          # dispatches below stamp this iteration
-            for j, action in enumerate(self.strategy.actions(k)):
-                key = prng.fold_in(step_key, j)
+            with phase("observe"):
+                actions = self.strategy.actions(k)
+            for j, action in enumerate(actions):
+                with phase("keys"):
+                    key = prng.fold_in(step_key, j)
                 self.W, self.opt_state, info = self.strategy.dispatch(
                     action, self.W, self.opt_state, batch, lr, key)
                 timing = tl.last if tl is not None else None
                 if "loss" in info:
                     step_info = info
-                    loss_val = (info["loss"] if defer_loss
-                                else float(info["loss"]))
+                    with phase("readback"):
+                        loss_val = (info["loss"] if defer_loss
+                                    else float(info["loss"]))
                     hist.losses.append(loss_val)
-                    self.strategy.observe_loss(k, loss_val)
-                    if timing is not None:
-                        info["timing"] = timing
-                    for cb in self.callbacks:
-                        cb.on_step_end(self, k, info)
+                    with phase("observe"):
+                        self.strategy.observe_loss(k, loss_val)
+                        if timing is not None:
+                            info["timing"] = timing
+                        for cb in self.callbacks:
+                            cb.on_step_end(self, k, info)
                 if "s_k" in info:
                     record_sync(k, lr, info["s_k"], timing)
                 if "s_k_at" in info:
@@ -368,8 +392,9 @@ class TrainerEngine:
                     record_sync(at, self.lr_fn(at), s_val, timing)
                 if info.get("inner_sync"):
                     hist.inner_sync_steps.append(k)
-            for cb in self.callbacks:
-                cb.on_iteration_end(self, k, step_info)
+            with phase("observe"):
+                for cb in self.callbacks:
+                    cb.on_iteration_end(self, k, step_info)
         if defer_loss:
             hist.losses[:] = [float(v) for v in hist.losses]
         hist.wall_s += time.time() - t0

@@ -578,11 +578,30 @@ def remat(sc):
     return out
 
 
+def phases(sc):
+    """The scenario's run with the engine's phase recorder
+    (``runtime/phases.py``) off, then on: each run's history, final W and
+    this rank's optimizer state, and the phases the recorder recorded in
+    each iteration, with their counts."""
+    out = {}
+    for on in (False, True):
+        engine = make_engine(sc)
+        engine.phases.on = on
+        hist = engine.run()
+        counts_by_k = {}
+        for r in engine.phases.records:
+            c = counts_by_k.setdefault(r.k, {})
+            c[r.name] = c.get(r.name, 0) + 1
+        out[on] = dict(history(engine, hist), counts=counts_by_k,
+                       opt=[x.numpy() for x in _leaves(engine.opt_state)])
+    return out
+
+
 SCENARIOS = {"train": train, "counts": counts, "exchange": exchange,
              "inflight": inflight, "save_half": save_half, "resume": resume,
              "cli": cli, "topology": topology, "tp_fallback": tp_fallback,
              "remat": remat,
-             "adacomm_wall": adacomm_wall}
+             "adacomm_wall": adacomm_wall, "phases": phases}
 
 
 def main(rank: int, world: int, store: str, spec: str, out: str) -> None:
