@@ -17,8 +17,9 @@ published width, cut to 4 layers, R = 4 replicas, adamw:
 * 3  ADPSGD, 16 steps (the fused mean + sqdev kernel in every sync, one
      launch over all 29 leaves);
 * 3b qsgd_periodic, 16 steps (QSGD-quantized deltas on ADPSGD's schedule:
-     sqnorm once per leaf over its 4 deltas, quantize, dequantize and mean
-     + sqdev in every quantized sync);
+     sqnorm once per leaf over its 4 deltas, the keyed quantize (the
+     uniforms drawn inside the kernel), dequantize and mean + sqdev in
+     every quantized sync);
 * 3c qsgd, 8 steps (quantized gradients every step; sqnorm once per
      replica over its 29 leaves);
 
@@ -209,8 +210,8 @@ KERNEL_CASES = ([(2, (100,)), (8, (33, 7)), (16, (1024,)), (4, (5, 4, 3))]
 QSGD_CASES = ([((n,), b) for n in (7, 1000, 1024, 4097) for b in (4, 8)]
               + [((33, 17), 8)]
               + [(s, BITS) for s in LEAF_SHAPES + CNN_LEAF_SHAPES])
-KERNEL_NAMES = ("mean_and_sqdev", "sqnorm", "quantize", "dequantize",
-                "flash_attention")
+KERNEL_NAMES = ("mean_and_sqdev", "sqnorm", "quantize", "quantize_keyed",
+                "dequantize", "flash_attention")
 # the counts a path is held to: each kernel's launches, and the leaves
 # mean_and_sqdev's launches covered (a grouped launch covers a whole tree)
 LEAVES = "mean_and_sqdev.leaves"
@@ -338,7 +339,8 @@ def kernel_fns():
     from repro_torch.kernels import param_variance as pv
     from repro_torch.kernels import qsgd_quant as qq
     return {"mean_and_sqdev": pv.mean_and_sqdev, "sqnorm": qq.sqnorm,
-            "quantize": qq.quantize, "dequantize": qq.dequantize,
+            "quantize": qq.quantize, "quantize_keyed": qq.quantize_keyed,
+            "dequantize": qq.dequantize,
             "flash_attention": fa.flash_attention}
 
 
@@ -636,9 +638,11 @@ def phase_qsgd_kernels(device) -> dict:
     """sqnorm, quantize and dequantize against their plain versions on the
     card.  sqnorm: rtol 1e-5, or 1e-4 on the embedding (f32 sums in
     another order), and bitwise repeatable.  quantize, given the same norm
-    tensor and uniforms, and dequantize: bit-identical.  Also: a zero
-    tensor gives norm 0 and levels 0; a level of s + 1 saturates to 127 as
-    XLA's cast does; the uniforms drawn on the card equal the CPU's."""
+    tensor and uniforms, and dequantize: bit-identical.  The keyed
+    quantize: bit-identical to quantize given ``prng.uniform``'s draw under
+    its key.  Also: a zero tensor gives norm 0 and levels 0; a level of
+    s + 1 saturates to 127 as XLA's cast does (both quantize kernels); the
+    uniforms drawn on the card equal the CPU's."""
     import torch
     from repro_torch.core import prng
     from repro_torch.kernels import qsgd_quant as qq
@@ -646,8 +650,9 @@ def phase_qsgd_kernels(device) -> dict:
 
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    errs = {"sqnorm": 0.0, "quantize": 0.0, "dequantize": 0.0}
-    for shape, bits in QSGD_CASES:
+    errs = {"sqnorm": 0.0, "quantize": 0.0, "quantize_keyed": 0.0,
+            "dequantize": 0.0}
+    for case, (shape, bits) in enumerate(QSGD_CASES):
         x = torch.randn(shape, generator=gen, device=device) * 3.0
         u = torch.rand(shape, generator=gen, device=device)
         sq, sq2 = qq.sqnorm(x), qq.sqnorm(x)
@@ -657,6 +662,10 @@ def phase_qsgd_kernels(device) -> dict:
         lv_ref, _ = ref.quantize_ref(x, u, bits, norm=norm)
         dq = qq.dequantize(lv, norm, bits)
         dq_ref = ref.dequantize_ref(lv, norm, bits)
+        key = prng.fold_in(prng.prng_key(2**31 + 3), case)
+        lk = qq.quantize_keyed(x, key, norm, bits)
+        lk_ref = qq.quantize(x, prng.uniform(key, shape, device=device),
+                             norm, bits)
         torch.cuda.synchronize()
         sq_abs = abs(float(sq) - float(sq_ref))
         sq_rel = sq_abs / float(sq_ref)
@@ -668,16 +677,21 @@ def phase_qsgd_kernels(device) -> dict:
               f"plain={float(sq_ref):.9e} rel={sq_rel:.3e} "
               f"repeat={torch.equal(sq, sq2)} levels_equal="
               f"{torch.equal(lv, lv_ref)} dequant_equal="
-              f"{torch.equal(dq, dq_ref)}")
+              f"{torch.equal(dq, dq_ref)} keyed_equal={torch.equal(lk, lk_ref)}")
         check(sq_rel <= tol, f"sqnorm rel error {sq_rel} > {tol} at {shape}")
         check(torch.equal(sq, sq2), f"sqnorm not repeatable at {shape}")
         check(lv.dtype == torch.int8 and torch.equal(lv, lv_ref),
               f"levels differ from plain at {shape} bits={bits}")
         check(torch.equal(dq, dq_ref), f"dequantize differs at {shape}")
+        check(lk.dtype == torch.int8 and torch.equal(lk, lk_ref),
+              f"keyed levels differ from uniform + quantize at {shape} "
+              f"bits={bits}")
         errs["sqnorm"] = max(errs["sqnorm"], sq_abs)
         errs["quantize"] = max(errs["quantize"], float(lv_err))
+        errs["quantize_keyed"] = max(errs["quantize_keyed"], float(
+            (lk.to(torch.int32) - lk_ref.to(torch.int32)).abs().max()))
         errs["dequantize"] = max(errs["dequantize"], dq_err)
-        del x, u, lv, lv_ref, dq, dq_ref
+        del x, u, lv, lv_ref, dq, dq_ref, lk, lk_ref
     z = torch.zeros(128, device=device)
     nz = torch.sqrt(qq.sqnorm(z))
     lz = qq.quantize(z, z, nz)
@@ -685,9 +699,18 @@ def phase_qsgd_kernels(device) -> dict:
     x = torch.tensor([1.5, -1.5, 0.25], device=device)
     near = torch.tensor(1.5 * (1 - 2**-20), device=device)
     lv = qq.quantize(x, torch.zeros(3, device=device), near)
+    one = torch.tensor(1.0, device=device)
+    key = uniform_key()
+    lk = qq.quantize_keyed(x, key, one)
+    lz = qq.quantize_keyed(z, key, nz)
     print(f"  qsgd saturation (|x|/norm·s just above s, u = 0): "
-          f"levels={lv.tolist()}")
+          f"levels={lv.tolist()}; keyed at norm 1 (|x|/norm·s above s): "
+          f"{lk.tolist()}")
     check(lv.tolist()[:2] == [127, -128], f"saturation gave {lv.tolist()}")
+    check(lk.tolist()[:2] == [127, -128] and torch.equal(lk, qq.quantize(
+        x, prng.uniform(key, (3,), device=device), one)),
+        f"keyed saturation gave {lk.tolist()}")
+    check(not lz.any(), "keyed quantize of a zero tensor: nonzero levels")
     errs["sqnorm"] = max(errs["sqnorm"], phase_sqnorm_many(device))
     t0 = time.perf_counter()
     on_card = prng.uniform(uniform_key(), EMBED_SHAPE, device=device).cpu()
@@ -1152,7 +1175,8 @@ def resume_ref(engine, hist) -> dict:
 def phase_qsgd_periodic() -> dict:
     """qsgd_periodic: the seeding sync costs one mean_and_sqdev launch
     over the 29 leaves, each later sync 29 of sqnorm (one per leaf, over
-    its 4 deltas), 29 x 4 of quantize and dequantize, and 29 of
+    its 4 deltas), 29 x 4 of the keyed quantize and of dequantize (none of
+    the quantize that reads uniforms), and 29 of
     mean_and_sqdev (one leaf each).  At the last
     sync the kernel route's S_k is held against the plain route's on the
     same W, anchor and key (rtol 1e-4: the norms differ by rounding, which
@@ -1184,7 +1208,8 @@ def phase_qsgd_periodic() -> dict:
     q = N_LEAVES * 4 * (n - 1)
     want = {"mean_and_sqdev": 1 + N_LEAVES * (n - 1),
             LEAVES: N_LEAVES * n, "sqnorm": N_LEAVES * (n - 1),
-            "quantize": q, "dequantize": q, "flash_attention": 0}
+            "quantize": 0, "quantize_keyed": q, "dequantize": q,
+            "flash_attention": 0}
     check(n >= 4, f"only {n} syncs")
     check(out["launches"] == want, f"launches {out['launches']} != {want}")
     s_k_kernel = hist.s_k[-1]
@@ -1228,9 +1253,9 @@ def phase_qsgd_periodic() -> dict:
 
 def phase_qsgd() -> dict:
     """qsgd: 8 steps; the replicas stay bit-identical after every step
-    (max |W_r - W_0| = 0 on every leaf); launches = 8 x 4 x 29 of quantize
-    and dequantize, and 8 x 4 of sqnorm (one per replica, over its 29
-    leaves)."""
+    (max |W_r - W_0| = 0 on every leaf); launches = 8 x 4 x 29 of the
+    keyed quantize and of dequantize, and 8 x 4 of sqnorm (one per
+    replica, over its 29 leaves)."""
     import torch
     from repro_torch.runtime.engine import Callback
     from repro_torch.tree import tree_leaves
@@ -1249,7 +1274,8 @@ def phase_qsgd() -> dict:
     steps = len(hist.losses)
     q = steps * 4 * N_LEAVES
     want = {"mean_and_sqdev": 0, LEAVES: 0, "sqnorm": steps * 4,
-            "quantize": q, "dequantize": q, "flash_attention": 0}
+            "quantize": 0, "quantize_keyed": q, "dequantize": q,
+            "flash_attention": 0}
     print(f"  max |W_r - W_0| after each step: {probe.max_diff}")
     check(steps == 8 and hist.n_syncs == 8, f"{steps} steps, "
           f"{hist.n_syncs} communication events")
@@ -1661,8 +1687,8 @@ def cnn_launches_expected(name: str, by_program: dict) -> dict:
     """mean_and_sqdev once over all leaves of every all_mean and
     mean_delta, once per leaf of every quantized_all_mean; QSGD's kernels
     per quantized exchange (sqnorm once per leaf over its replicas,
-    quantize / dequantize per leaf and replica) and per qsgd step (sqnorm
-    once per replica)."""
+    the keyed quantize and dequantize per leaf and replica) and per qsgd
+    step (sqnorm once per replica)."""
     calls = {p: v["calls"] for p, v in by_program.items()}
     grouped = calls.get("all_mean", 0) + calls.get("mean_delta", 0)
     q = calls.get("quantized_all_mean", 0)
@@ -1671,7 +1697,7 @@ def cnn_launches_expected(name: str, by_program: dict) -> dict:
     want["mean_and_sqdev"] = grouped + CNN_LEAVES * q
     want[LEAVES] = CNN_LEAVES * (grouped + q)
     want["sqnorm"] = CNN_LEAVES * q + CNN_R * s
-    want["quantize"] = want["dequantize"] = CNN_LEAVES * CNN_R * (q + s)
+    want["quantize_keyed"] = want["dequantize"] = CNN_LEAVES * CNN_R * (q + s)
     return want
 
 
@@ -2192,8 +2218,8 @@ def check_mesh_launches(label: str, run: dict, engine, hist) -> None:
         q = N_LEAVES * 4 * (n - 1)
         want = {"mean_and_sqdev": 2 + N_LEAVES * (n - 1),
                 LEAVES: 2 * N_LEAVES + N_LEAVES * (n - 1),
-                "sqnorm": N_LEAVES * (n - 1), "quantize": q,
-                "dequantize": q, "flash_attention": 0}
+                "sqnorm": N_LEAVES * (n - 1), "quantize": 0,
+                "quantize_keyed": q, "dequantize": q, "flash_attention": 0}
         run["payload_bytes"] = engine.backend.n_local * payload
     else:
         syncs = progs.get("sync", []) + progs.get("full_sync", [])
@@ -2859,11 +2885,12 @@ def phase_qsgd_timing(W) -> dict:
     calls of 4, the kernels line's number) and by replica (qsgd, 4 calls of
     29), beside one call per tensor, ``torch.dot`` per tensor and
     ``torch._foreach_norm`` over the same groups (norms, not squares: a
-    yardstick).  The uniforms are timed as ``prng.uniform`` draws them,
-    in one piece, and in ``prng.CHUNK``-element pieces, alternately: one
-    replica's embedding draw, an exchange's draws, and a whole quantize /
-    dequantize round trip of the exchange (``qsgd.quantize_pytree`` per
-    replica), with the embedding draw's peak bytes."""
+    yardstick).  The keyed quantize, under the exchange's own keys, beside
+    what it replaced, ``prng.uniform`` then ``quantize`` (alternately,
+    keyed first and last), on one replica's embedding and over the
+    exchange, its levels bitwise that pair's on every tensor; and the
+    uniforms alone and a whole quantize / dequantize round trip of the
+    exchange (``qsgd.quantize_pytree`` per replica, the keyed route)."""
     import torch
     from repro_torch.core import prng, qsgd
     from repro_torch.kernels import qsgd_quant as qq
@@ -2951,47 +2978,60 @@ def phase_qsgd_timing(W) -> dict:
     release()
     rkeys = prng.replica_keys(prng.prng_key(17), range(R))
     keys = [prng.split(k, len(leaves)) for k in rkeys]
-    e = max(range(len(leaves)), key=lambda i: leaves[i][0].numel())
-    whole_uniform = prng.uniform
+    pairs = [(w[r], keys[r][i]) for i, w in enumerate(leaves)
+             for r in range(R)]
+    norms = [torch.sqrt(qq.sqnorm(x)) for x, _ in pairs]
+    embed = [max(range(len(pairs)), key=lambda j: pairs[j][0].numel())]
+    whole = range(len(pairs))
 
-    def chunked_uniform(key, shape, device=None):
-        """The rejected alternative: the draw in CHUNK-element pieces, as
-        ``prng.normal`` makes it."""
-        return prng._draw(key, shape, device, lambda u: u)
+    def keyed(js):
+        return lambda: [qq.quantize_keyed(pairs[j][0], pairs[j][1],
+                                          norms[j], BITS) for j in js]
 
-    draws = {
-        "embed_uniform": (lambda: prng.uniform(
-            keys[0][e], leaves[e].shape[1:], device=leaves[e].device), 5),
-        "exchange_uniforms": (lambda: [
-            prng.uniform(keys[r][i], w.shape[1:], device=w.device)
-            for i, w in enumerate(leaves) for r in range(R)], 2),
-        "exchange_round_trip": (lambda: [
-            qsgd.quantize_pytree([w[r] for w in leaves], rkeys[r], BITS)
-            for r in range(R)], 2),
-    }
-    rows = {name: {"whole": [], "chunked": []} for name in draws}
-    transient = {}
-    for label in ("chunked", "whole", "whole", "chunked"):
-        prng.uniform = (chunked_uniform if label == "chunked"
-                        else whole_uniform)
-        try:
-            for name, (fn, iters) in draws.items():
-                rows[name][label].append(cuda_ms(fn, iters))
-            release()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            draws["embed_uniform"][0]()
-            transient[label] = torch.cuda.max_memory_allocated() - base
-        finally:
-            prng.uniform = whole_uniform
-    print(f"  timing threefry uniforms in one piece (prng.uniform) against "
-          f"CHUNK={prng.CHUNK}-element pieces, in the order chunked, whole, "
-          f"whole, chunked (ms per call): " + json.dumps(rows))
-    print(f"  embedding draw's peak bytes above the state: {transient}")
-    out["uniform_ms"] = sum(rows["exchange_uniforms"]["whole"]) / 2
-    out["chunking"] = dict(rows, embed_transient_bytes=transient)
-    print(f"  timing uniform generator per exchange "
-          f"({len(leaves)} leaves x {R} replicas): {out['uniform_ms']} ms")
+    def drawn(js):
+        return lambda: [qq.quantize(pairs[j][0], prng.uniform(
+            pairs[j][1], pairs[j][0].shape, device=pairs[j][0].device),
+            norms[j], BITS) for j in js]
+
+    def plain(js):
+        return lambda: [ref.quantize_ref(pairs[j][0], prng.uniform(
+            pairs[j][1], pairs[j][0].shape, device=pairs[j][0].device),
+            BITS, norm=norms[j])[0] for j in js]
+    same = all(torch.equal(a, b) for a, b in zip(keyed(whole)(),
+                                                 drawn(whole)()))
+    print(f"  keyed quantize over the exchange ({len(pairs)} tensors) "
+          f"bitwise prng.uniform + quantize: {same}")
+    check(same, "keyed quantize differs from prng.uniform + quantize")
+    rows = {label: {"keyed": [], "uniform_quantize": []}
+            for label in ("embed", "exchange")}
+    for route in ("keyed", "uniform_quantize", "uniform_quantize", "keyed"):
+        for label, js, iters in (("embed", embed, 10),
+                                 ("exchange", whole, 2)):
+            fn = keyed(js) if route == "keyed" else drawn(js)
+            rows[label][route].append(cuda_ms(fn, iters))
+    n_el = sum(x.numel() for x, _ in pairs)
+    row = {"ms": min(rows["exchange"]["keyed"]),
+           "plain_ms": cuda_ms(plain(whole), 1), "library_ms": None}
+    row["bound_ms"], row["bound_by"] = qsgd_bound("quantize_keyed", n_el)
+    out[("quantize_keyed", "exchange")] = row
+    out["uniform_ms"] = cuda_ms(lambda: [
+        prng.uniform(k, x.shape, device=x.device) for x, k in pairs], 2)
+    out["round_trip_ms"] = cuda_ms(lambda: [
+        qsgd.quantize_pytree([w[r] for w in leaves], rkeys[r], BITS)
+        for r in range(R)], 2)
+    out["keyed"] = dict(rows, bitwise=same, **row,
+                        uniform_ms=out["uniform_ms"],
+                        round_trip_ms=out["round_trip_ms"])
+    print(f"  timing keyed quantize against prng.uniform + quantize, in the "
+          f"order keyed, pair, pair, keyed (ms per call): "
+          + json.dumps(rows))
+    print(f"  timing quantize_keyed exchange ({len(pairs)} tensors, {n_el} "
+          f"elements): " + " ".join(f"{k}={v}" for k, v in row.items()))
+    print(f"  timing uniform generator per exchange ({len(leaves)} leaves x "
+          f"{R} replicas): {out['uniform_ms']} ms; quantize / dequantize "
+          f"round trip (quantize_pytree, keyed): {out['round_trip_ms']} ms")
+    del pairs, norms
+    release()
     return out
 
 
@@ -3978,7 +4018,8 @@ def main() -> int:
         "bound_ms": sync["bound_ms"], "bound_by": sync["bound_by"],
         "library_ms": sync["library_ms"],
     }]
-    for name, line in (("sqnorm", 59), ("quantize", 80), ("dequantize", 101)):
+    for name, line in (("sqnorm", 59), ("quantize", 80),
+                       ("quantize_keyed", 80), ("dequantize", 101)):
         row = qtiming[(name, "exchange")]
         kernels.append({
             "name": name, "route": "cuda",
@@ -4019,7 +4060,7 @@ def main() -> int:
           f"uniform_ms_per_exchange={qtiming['uniform_ms']} "
           f"qsgd_periodic last-sync s_k_rel={qp['s_k_rel']} "
           f"level_flips={qp['level_flips']}")
-    print("summary: uniform chunking " + json.dumps(qtiming["chunking"]))
+    print("summary: keyed quantize " + json.dumps(qtiming["keyed"]))
     print("summary: serving " + json.dumps(
         {k: v for k, v in serving.items() if k != "launches"})
           + f" flash prefill_32k={ftiming['prefill_32k']}")

@@ -22,7 +22,9 @@ per cent of the values differ from jax's by up to three f32 ulps
 A key is a pair of Python ints, worked on the host.  Only the per-element
 bits of ``uniform`` are computed on the device, in int64 tensors masked to
 32 bits (torch's uint32 has no shifts or xor on CUDA); ``normal`` computes
-them a chunk of the counter range at a time.  Chunking is exact: element
+them a chunk of the counter range at a time.  The QSGD quantize kernel
+computes the same bits in 32-bit registers from the key
+(``csrc/qsgd_quant.cu``).  Chunking is exact: element
 i's counter is (i >> 32, i & 0xFFFFFFFF) wherever the chunk starts.  ``threefry2x32``
 is written with plain operators, so the same code hashes Python ints and
 tensors.
@@ -119,10 +121,10 @@ def _draw(key: Key, shape: Sequence[int], device, fn) -> torch.Tensor:
 
 def uniform(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
     """f32 uniforms in [0, 1) of ``shape`` on ``device``, bit-identical to
-    ``jax.random.uniform(key, shape)``, drawn in one piece: QSGD draws
-    these at every exchange, where 2^22-element chunks cost 5-8 % more
-    time on an H100 (``chip_smoke.py`` phase 4) and the transients (about
-    44 bytes per element) fit beside the training state."""
+    ``jax.random.uniform(key, shape)``, drawn in one piece (the transients
+    are about 44 bytes per element).  QSGD's plain route draws these; its
+    kernel route draws the same bits inside the quantize kernel
+    (``kernels/qsgd_quant.py::quantize_keyed``)."""
     n = math.prod(shape)
     return _uniform_range(key, 0, n, device).reshape(tuple(shape))
 

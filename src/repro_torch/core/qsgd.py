@@ -6,13 +6,16 @@ replica quantizes its gradient, "transmits" it (a quantize → dequantize
 round trip on one device) and all replicas apply the mean of the
 dequantized gradients, so their trajectories stay identical.
 
-The uniforms of the stochastic rounding come from ``core/prng.py``, the
-reference's threefry stream, under the same keys: one split of a
-replica's key per leaf, in ``tree_leaves`` order.  With ``use_kernel``
-(the default) the norm, the quantization and the dequantization go
-through the kernel wrappers (``kernels/ops.py``), which launch the CUDA
-kernels for tensors on the card and take the plain versions for tensors
-on the CPU; ``use_kernel=False`` takes the plain versions everywhere.
+The uniforms of the stochastic rounding are the reference's threefry
+stream (``core/prng.py``) under the same keys: one split of a replica's
+key per leaf, in ``tree_leaves`` order.  With ``use_kernel`` (the
+default) the norm, the quantization and the dequantization go through
+the kernel wrappers (``kernels/ops.py``), which launch the CUDA kernels
+for tensors on the card and take the plain versions for tensors on the
+CPU; the quantize kernel takes the leaf's key and draws the uniforms
+itself (``quantize_keyed``), the same bits ``prng.uniform`` draws for the
+plain versions.  ``use_kernel=False`` takes the plain versions
+everywhere.
 Where many tensors are quantized together (the leaves of a replica's
 gradient here, the replicas' deltas of a leaf in the quantized sync) the
 caller takes all their norms in one call (``norms``) and hands each to
@@ -54,12 +57,12 @@ def quantize(v: torch.Tensor, key: prng.Key, bits: int = 8, *,
     so E[q] = v.  ``norm``: ||v||₂ (one f32 value), when the caller has
     taken it already (``norms``).  Returns (int8 levels, f32 norm)."""
     vf = v.to(torch.float32).contiguous()
-    u = prng.uniform(key, v.shape, device=v.device)
     if not use_kernel:
-        return kref.quantize_ref(vf, u, bits, norm=norm)
+        return kref.quantize_ref(
+            vf, prng.uniform(key, v.shape, device=v.device), bits, norm=norm)
     if norm is None:
         norm = torch.sqrt(kops.qsgd_sqnorm(vf))
-    return kops.qsgd_quantize(vf, u, norm, bits), norm
+    return kops.qsgd_quantize_keyed(vf, key, norm, bits), norm
 
 
 def dequantize(levels: torch.Tensor, norm: torch.Tensor, bits: int = 8,

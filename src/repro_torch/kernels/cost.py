@@ -21,6 +21,9 @@ from repro_torch.core.comm_model import HBM_BW, PEAK_FLOPS_BF16
 HBM_BYTES_PER_S = HBM_BW             # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = PEAK_FLOPS_BF16   # H100 SXM bf16 tensor cores, dense
+# H100 SXM 32-bit integer ALU: 132 SMs x 64 INT32 lanes x 1.98 GHz (the
+# clock of the published f32 and bf16 rates)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 Cost = Tuple[float, float]           # (bytes, operations)
 
@@ -75,19 +78,28 @@ def grouped_cost(shapes, mode: str) -> Cost:
 
 
 # per element: (bytes, operations)
-QSGD_PER_ELEMENT = {"sqnorm": (4, 2), "quantize": (9, 8), "dequantize": (5, 1)}
+QSGD_PER_ELEMENT = {"sqnorm": (4, 2), "quantize": (9, 8), "dequantize": (5, 1),
+                    "quantize_keyed": (5, 43)}
 
 
 def qsgd_cost(name: str, n: int) -> Cost:
     """Per element: sqnorm reads 4 bytes (2 operations); quantize reads x
     and u and writes one int8 level (about 8 operations); dequantize
-    reads a level and writes 4 bytes (1 operation)."""
+    reads a level and writes 4 bytes (1 operation).  quantize_keyed reads
+    x and writes a level; its operations are the threefry hash's 32-bit
+    integer operations that only the integer ALU runs: 20 rotations, 21
+    xors, and the shift and or that make the uniform's bits (its 32 adds
+    may issue on the FMA pipe beside them, and its f32 work is
+    quantize's)."""
     n_bytes, n_ops = QSGD_PER_ELEMENT[name]
     return n_bytes * n, n_ops * n
 
 
 def qsgd_bound(name: str, n: int) -> tuple:
-    return bound(*qsgd_cost(name, n))
+    """``bound`` of ``qsgd_cost``: quantize_keyed's operations at the
+    integer ALU's rate, the others' at the f32 rate."""
+    return bound(*qsgd_cost(name, n), INT32_OPS_PER_S
+                 if name == "quantize_keyed" else F32_FLOPS_PER_S)
 
 
 @functools.lru_cache(maxsize=256)

@@ -7,15 +7,40 @@
 //                                 with y = |x[i]| / norm * s, s = 2^(bits-1) - 1,
 //                                 and y = 0 where norm is 0
 //   dequantize (_dequant_kernel)  out[i] = float(levels[i]) * (norm / s)
-// over contiguous tensors of n elements viewed flat.  The caller takes
-// norm = sqrt(sq) on the device; quantize and dequantize read it through a
-// pointer, so there is no host round trip between the three launches.
+// over contiguous tensors of n elements viewed flat; and a keyed quantize,
+// which replaces no Pallas kernel (the reference draws u with jax.random
+// outside its kernel):
+//   threefry quantize             quantize with u[i] drawn inside the kernel
+//                                 from the key, as core/prng.py's uniform
+// The caller takes norm = sqrt(sq) on the device; the quantize kernels and
+// dequantize read it through a pointer, so there is no host round trip
+// between the launches.
 //
-// Bound: bytes.  Per element sqnorm reads 4 bytes, quantize reads 8 and
-// writes 1, dequantize reads 1 and writes 4, each with a handful of f32
-// operations — far below the card's ratio of operations to bytes.  Each
-// thread walks a grid-stride range of scalar loads, neighbouring threads
-// on neighbouring addresses; vector loads are left for later.
+// Bound: bytes, but for the keyed quantize.  Per element sqnorm reads 4
+// bytes, quantize reads 8 and writes 1, dequantize reads 1 and writes 4,
+// each with a handful of f32 operations -- far below the card's ratio of
+// operations to bytes.  Each thread walks a grid-stride range of scalar
+// loads, neighbouring threads on neighbouring addresses; vector loads are
+// left for later.
+//
+// The keyed quantize (threefry_quantize_kernel) replaces quantize on the
+// main path.  quantize reads uniforms that core/prng.py::uniform drew
+// first: the reference's threefry2x32 stream in int64 PyTorch tensors
+// masked to 32 bits, some twenty full passes over every element, about
+// 3 KB of traffic an element (2.6 s of a 2.8 s quantized sync of
+// OLMo-1B at R = 2).  The stream is counter-based -- element i's uniform
+// is threefry2x32(key, (i >> 32, i & 0xFFFFFFFF)) -- so the keyed kernel
+// takes the key's two words by value and draws each element's uniform in
+// registers, bit for bit the one prng.uniform gives, then applies
+// quantize's arithmetic unchanged.  It reads 4 bytes and writes 1 an
+// element, and does about 75 32-bit integer operations an element: 20
+// rounds of add, rotate and xor, 5 key injections, the bits of the
+// float.  The 20 rotations and 21 xors (and the shift and or of the bits)
+// run only on the integer ALU, 64 lanes an SM, while the adds may issue
+// as IMAD beside them, so those 43 operations bound it: about 1.7x the
+// time of its 5 bytes.  The hash stays in 32-bit registers (64-bit math
+// only for the index and its split), rotations are funnel shifts and the
+// rounds are unrolled; otherwise it walks the range as quantize does.
 //
 // Arithmetic that must match the plain version bit for bit.  quantize
 // follows the jnp formula |x| / norm * s of repro/core/qsgd.py and
@@ -138,6 +163,18 @@ sqnorm_pass2(const Group g, const float* __restrict__ partials,
   if (threadIdx.x == 0) out[t] = total;
 }
 
+// One element's level, the plain version's arithmetic: both quantize
+// kernels call this.
+__device__ __forceinline__ int8_t level_of(float v, float u, float nrm,
+                                           float scale) {
+  const float scaled = nrm > 0.0f ? fabsf(v) / nrm * scale : 0.0f;
+  const float floor_v = floorf(scaled);
+  const float mag = floor_v + (u < scaled - floor_v ? 1.0f : 0.0f);
+  const float sign = v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
+  const float level = fminf(fmaxf(sign * mag, -128.0f), 127.0f);
+  return static_cast<int8_t>(static_cast<int>(level));
+}
+
 __global__ void __launch_bounds__(kThreads)
 quantize_kernel(const float* __restrict__ x, const float* __restrict__ u,
                 const float* __restrict__ norm, int8_t* __restrict__ levels,
@@ -145,13 +182,46 @@ quantize_kernel(const float* __restrict__ x, const float* __restrict__ u,
   const float nrm = *norm;
   const float scale = static_cast<float>(s);
   for (int64_t i = first_index(); i < n; i += grid_stride()) {
-    const float v = x[i];
-    const float scaled = nrm > 0.0f ? fabsf(v) / nrm * scale : 0.0f;
-    const float floor_v = floorf(scaled);
-    const float mag = floor_v + (u[i] < scaled - floor_v ? 1.0f : 0.0f);
-    const float sign = v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
-    const float level = fminf(fmaxf(sign * mag, -128.0f), 127.0f);
-    levels[i] = static_cast<int8_t>(static_cast<int>(level));
+    levels[i] = level_of(x[i], u[i], nrm, scale);
+  }
+}
+
+// Threefry-2x32, 20 rounds, of the counter pair (i >> 32, i & 0xFFFFFFFF)
+// under the key (k0, k1), as core/prng.py::threefry2x32: returns the
+// uniform in [0, 1) that prng.uniform gives element i, bit for bit.
+__device__ __forceinline__ float threefry_uniform(uint32_t k0, uint32_t k1,
+                                                  uint64_t i) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  uint32_t x0 = static_cast<uint32_t>(i >> 32) + k0;
+  uint32_t x1 = static_cast<uint32_t>(i) + k1;
+#define REPRO_ROUND(r)                  \
+  x0 += x1;                             \
+  x1 = __funnelshift_l(x1, x1, (r));    \
+  x1 ^= x0;
+#define REPRO_ROUNDS_A REPRO_ROUND(13) REPRO_ROUND(15) REPRO_ROUND(26) REPRO_ROUND(6)
+#define REPRO_ROUNDS_B REPRO_ROUND(17) REPRO_ROUND(29) REPRO_ROUND(16) REPRO_ROUND(24)
+  REPRO_ROUNDS_A x0 += k1; x1 += k2 + 1u;
+  REPRO_ROUNDS_B x0 += k2; x1 += k0 + 2u;
+  REPRO_ROUNDS_A x0 += k0; x1 += k1 + 3u;
+  REPRO_ROUNDS_B x0 += k1; x1 += k2 + 4u;
+  REPRO_ROUNDS_A x0 += k2; x1 += k0 + 5u;
+#undef REPRO_ROUNDS_B
+#undef REPRO_ROUNDS_A
+#undef REPRO_ROUND
+  return __uint_as_float(((x0 ^ x1) >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// quantize with u[i] = threefry_uniform(k0, k1, start + i).
+__global__ void __launch_bounds__(kThreads)
+threefry_quantize_kernel(const float* __restrict__ x,
+                         const float* __restrict__ norm,
+                         int8_t* __restrict__ levels, int64_t n, int s,
+                         uint32_t k0, uint32_t k1, uint64_t start) {
+  const float nrm = *norm;
+  const float scale = static_cast<float>(s);
+  for (int64_t i = first_index(); i < n; i += grid_stride()) {
+    levels[i] = level_of(x[i], threefry_uniform(
+        k0, k1, start + static_cast<uint64_t>(i)), nrm, scale);
   }
 }
 
@@ -204,6 +274,24 @@ extern "C" int repro_qsgd_quantize_f32(const void* x, const void* u,
       static_cast<const float*>(x), static_cast<const float*>(u),
       static_cast<const float*>(norm), static_cast<int8_t*>(levels),
       static_cast<int64_t>(n), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The keyed quantize: x, norm and levels device pointers, n elements,
+// the key's words k0, k1, and the counter of element 0 (0 on the main
+// path: a leaf's element i is counter i).
+extern "C" int repro_qsgd_threefry_quantize_f32(const void* x,
+                                                const void* norm,
+                                                void* levels, long long n,
+                                                int s, unsigned int k0,
+                                                unsigned int k1,
+                                                unsigned long long start,
+                                                int blocks, void* stream) {
+  threefry_quantize_kernel<<<blocks, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(norm),
+      static_cast<int8_t*>(levels), static_cast<int64_t>(n), s, k0, k1,
+      start);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,6 +36,10 @@ def qsgd_quantize(x, u, norm, bits: int = 8):
     return _qq.quantize(x, u, norm, bits)
 
 
+def qsgd_quantize_keyed(x, key, norm, bits: int = 8):
+    return _qq.quantize_keyed(x, key, norm, bits)
+
+
 def qsgd_dequantize(levels, norm, bits: int = 8):
     return _qq.dequantize(levels, norm, bits)
 

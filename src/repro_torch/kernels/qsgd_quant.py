@@ -1,7 +1,8 @@
 """QSGD stochastic quantization kernels (port of
 ``repro/kernels/qsgd_quant.py``: ``sqnorm``, ``quantize``, ``dequantize``;
 ``sqnorm_many`` takes the squared norms of a group of tensors in one
-launch, and ``sqnorm`` is its group of one).
+launch, and ``sqnorm`` is its group of one; ``quantize_keyed`` is
+``quantize`` with its uniforms drawn inside the kernel).
 
 The kernels are CUDA C++ for Hopper, ``csrc/qsgd_quant.cu``, built and
 loaded by ``kernels/build.py`` at first use; nothing is compiled when this
@@ -12,9 +13,13 @@ raises.  Each launch adds one to the wrapper's ``launches`` count.  Meta
 tensors get outputs of the right shapes and dtypes, and each call that
 would launch reports its cost to ``kernels/cost.py``'s recorder instead.
 
-The uniforms of the stochastic rounding are an input, as in the reference,
-and the norm a device scalar: ``quantize`` takes the norm that ``sqnorm``
-gave (after a square root), so the three launches never wait on the host.
+The uniforms of the stochastic rounding are an input of ``quantize``, as
+in the reference.  ``quantize_keyed`` takes their key instead and draws
+element i's uniform in registers, bit for bit ``prng.uniform(key,
+x.shape)``'s (the threefry stream is counter-based), so the main path
+runs no pass of its own over the uniforms.  The norm is a device scalar:
+the quantize kernels take the norm that ``sqnorm`` gave (after a square
+root), so the launches never wait on the host.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.kernels import build, cost
 from repro_torch.kernels.ref import (dequantize_ref, qsgd_scale, quantize_ref,
                                      sqnorm_many_ref)
@@ -35,9 +41,12 @@ MAX_GROUP = 64       # kMaxGroup in csrc/qsgd_quant.cu: tensors per launch
 @functools.cache
 def _library() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    u32, u64 = ctypes.c_uint32, ctypes.c_ulonglong
     return build.load(SOURCE, {
         "repro_qsgd_sqnorm_many_f32": (p, p, p, i32, p, p, p),
         "repro_qsgd_quantize_f32": (p, p, p, p, i64, i32, i32, p),
+        "repro_qsgd_threefry_quantize_f32": (p, p, p, i64, i32, u32, u32,
+                                             u64, i32, p),
         "repro_qsgd_dequantize_i8": (p, p, p, i64, i32, i32, p),
     })
 
@@ -139,6 +148,36 @@ def quantize(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor,
     return levels
 
 
+def quantize_keyed(x: torch.Tensor, key: prng.Key, norm: torch.Tensor,
+                   bits: int = 8) -> torch.Tensor:
+    """``quantize(x, prng.uniform(key, x.shape), norm, bits)``, bit for
+    bit, with the uniforms drawn inside the kernel from ``key`` (a pair of
+    32-bit words); a CPU tensor takes the plain version with
+    ``prng.uniform``'s draw."""
+    _check(x, "x", torch.float32)
+    _check_norm(norm, x)
+    k0, k1 = key
+    if not (0 <= k0 <= prng.MASK and 0 <= k1 <= prng.MASK):
+        raise ValueError(f"key words must lie in [0, 2^32), got {key}")
+    s = qsgd_scale(bits)
+    if x.device.type == "cpu":
+        return quantize_ref(x, prng.uniform(key, x.shape), bits,
+                            norm=norm)[0]
+    n = x.numel()
+    if x.device.type == "meta":
+        cost.record("quantize_keyed", *cost.qsgd_cost("quantize_keyed", n),
+                    reads=(x, norm))
+        return torch.empty(x.shape, dtype=torch.int8, device="meta")
+    levels = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _library().repro_qsgd_threefry_quantize_f32(
+            x.data_ptr(), norm.data_ptr(), levels.data_ptr(), n, s, k0, k1,
+            0, build.grid_blocks(n), _stream(x))
+    build.check(err, "qsgd keyed quantize")
+    quantize_keyed.launches += 1
+    return levels
+
+
 def dequantize(levels: torch.Tensor, norm: torch.Tensor,
                bits: int = 8) -> torch.Tensor:
     """levels · norm / s as f32, of the levels' shape."""
@@ -164,4 +203,5 @@ def dequantize(levels: torch.Tensor, norm: torch.Tensor,
 
 sqnorm.launches = 0
 quantize.launches = 0
+quantize_keyed.launches = 0
 dequantize.launches = 0

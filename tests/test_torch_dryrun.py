@@ -187,7 +187,7 @@ def test_ring_factors_are_the_references(jax_dryrun):
 def _launches():
     return (pv.mean_and_sqdev.launches, pv.mean_and_sqdev.leaves,
             qq.sqnorm.launches, qq.quantize.launches, qq.dequantize.launches,
-            fa.flash_attention.launches)
+            qq.quantize_keyed.launches, fa.flash_attention.launches)
 
 
 def test_kernel_wrappers_on_meta_record_costs_and_launch_nothing():
@@ -225,6 +225,36 @@ def test_kernel_wrappers_on_meta_record_costs_and_launch_nothing():
     with pytest.raises(ValueError, match="head dims"):
         d48 = torch.empty(1, 128, 2, 48, dtype=torch.bfloat16, **meta)
         fa.flash_attention(d48, d48, d48)
+
+
+def test_keyed_quantize_on_meta_records_its_own_cost():
+    """The keyed quantize on meta: its own name and cost (5 bytes and 43
+    integer-ALU operations an element, bound at the integer rate), no
+    uniform drawn, nothing launched; ``qsgd.quantize`` takes it on meta
+    as on the card."""
+    from repro_torch.core import prng, qsgd
+    x = torch.empty(3, 1000, device="meta")
+    before = _launches()
+
+    def no_draw(*args, **kwargs):
+        raise AssertionError("prng.uniform called on meta")
+    saved, prng.uniform = prng.uniform, no_draw
+    try:
+        with dryrun.CostMode() as mode:
+            lv = qq.quantize_keyed(x, (1, 2), torch.empty(1, device="meta"))
+            lq, nq = qsgd.quantize(x, (3, 4), 4)
+    finally:
+        prng.uniform = saved
+    assert _launches() == before
+    assert lv.dtype == lq.dtype == torch.int8 and lv.shape == lq.shape == \
+        x.shape and nq.device.type == "meta"
+    k = mode.kernels
+    assert k["quantize_keyed"] == {"calls": 2, "bytes": 2 * 5.0 * 3000,
+                                   "ops": 2 * 43.0 * 3000}
+    assert "quantize" not in k and k["sqnorm"]["calls"] == 1
+    assert cost.qsgd_bound("quantize_keyed", 3000) == cost.bound(
+        5 * 3000, 43 * 3000, cost.INT32_OPS_PER_S)
+    assert cost.qsgd_bound("quantize_keyed", 10**8)[1] == "operations"
 
 
 def test_bounds_are_chip_smokes_numbers():

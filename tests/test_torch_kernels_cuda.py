@@ -12,7 +12,8 @@ Without a CUDA device every case skips (the kernels have no CPU mode).
 Tolerances: mean atol 1e-6, sq and sqnorm rtol 1e-5 (f32 sums in another
 order); the grouped mean_and_sqdev's means and deltas bitwise (the replicas
 summed in index order, as the plain version does); levels and dequantized values bit-identical given the same norm
-and uniforms; a tensor's sqnorm in a group bit-identical to its sqnorm
+and uniforms, and the keyed quantize's levels bit-identical to quantize's
+given ``prng.uniform``'s draw under its key; a tensor's sqnorm in a group bit-identical to its sqnorm
 alone; flash attention atol = rtol = 2e-5 in f32 and 2e-2 in bf16, the
 tolerances of the reference's kernel test (online against exact softmax;
 one bf16 rounding of the output)."""
@@ -352,6 +353,75 @@ def test_qsgd_kernels_zero_and_saturation(cuda):
         x, torch.zeros(3, device=cuda), 8, norm=near)[0])
 
 
+KEYED_SHAPES = [shape for _, shape in CASES] + [(50304, 2048)]
+
+
+def _keyed_key(i):
+    return prng.split(prng.fold_in(prng.prng_key(2**31 + 7), i), 3)[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KEYED_SHAPES)
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_quantize_keyed_equals_uniform_then_quantize(cuda, shape, bits):
+    """The keyed kernel's levels bitwise those of ``quantize`` given
+    ``prng.uniform``'s draw under the same key, at the cases' shapes and
+    OLMo-1B's embedding leaf; one launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(len(shape) * 100 + bits)
+    x = torch.randn(shape, generator=gen, device=cuda) * 3.0
+    norm = torch.sqrt(qsgd_quant.sqnorm(x))
+    key = _keyed_key(bits)
+    before = qsgd_quant.quantize_keyed.launches
+    lv = qsgd_quant.quantize_keyed(x, key, norm, bits)
+    assert qsgd_quant.quantize_keyed.launches == before + 1
+    want = qsgd_quant.quantize(x, prng.uniform(key, shape, device=cuda),
+                               norm, bits)
+    torch.cuda.synchronize()
+    assert lv.dtype == torch.int8 and lv.shape == x.shape
+    assert torch.equal(lv, want)
+
+
+@pytest.mark.cuda
+def test_quantize_keyed_zero_saturation_and_unaligned(cuda):
+    key = _keyed_key(0)
+    z = torch.zeros(130, device=cuda)
+    assert not qsgd_quant.quantize_keyed(z, key, torch.sqrt(
+        qsgd_quant.sqnorm(z))).any()
+    x = torch.tensor([1.5, -1.5, 0.25, 0.0], device=cuda)
+    one = torch.tensor(1.0, device=cuda)        # |x| / norm · s above s
+    lv = qsgd_quant.quantize_keyed(x, key, one)
+    assert lv.tolist()[:2] == [127, -128] and lv.tolist()[3] == 0
+    assert torch.equal(lv, qsgd_quant.quantize(
+        x, prng.uniform(key, (4,), device=cuda), one))
+    # a view one element in, not 16-byte aligned
+    base = torch.randn(4099, device=cuda)
+    for xv in (base[1:], base[1:].view(3, 1366)):
+        norm = torch.sqrt(qsgd_quant.sqnorm(xv.contiguous()))
+        assert xv.data_ptr() % 16 != 0
+        assert torch.equal(
+            qsgd_quant.quantize_keyed(xv, key, norm),
+            qsgd_quant.quantize(xv, prng.uniform(key, xv.shape, device=cuda),
+                                norm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192, 8190])
+def test_quantize_keyed_counter_high_word(cuda, n):
+    """The C entry's counter start at 2^32 − 4096: the range crosses into
+    the counter's high word, against ``prng._uniform_range``."""
+    key, start = _keyed_key(1), 2**32 - 4096
+    x = torch.randn(n, device=cuda)
+    norm = torch.sqrt(qsgd_quant.sqnorm(x))
+    lv = torch.empty(n, dtype=torch.int8, device=cuda)
+    err = qsgd_quant._library().repro_qsgd_threefry_quantize_f32(
+        x.data_ptr(), norm.data_ptr(), lv.data_ptr(), n, 127, key[0], key[1],
+        start, 32, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    u = prng._uniform_range(key, start, start + n, cuda)
+    assert torch.equal(lv, qsgd_quant.quantize(x, u, norm))
+
+
 @pytest.mark.cuda
 def test_uniform_on_card_equals_cpu(cuda):
     key = prng.split(prng.fold_in(prng.prng_key(17), 3), 4)[2]
@@ -361,7 +431,10 @@ def test_uniform_on_card_equals_cpu(cuda):
 
 
 @pytest.mark.cuda
-def test_quantized_sync_uses_kernels_on_cuda(cuda):
+def test_quantized_sync_uses_kernels_on_cuda(cuda, monkeypatch):
+    """The kernel route: one grouped sqnorm and one mean + sqdev a leaf,
+    the keyed quantize a leaf and replica, no ``prng.uniform`` draw and
+    no launch of the quantize that reads uniforms."""
     from repro_torch.backends import VmapBackend
     g = torch.Generator().manual_seed(0)
     W = {"a": torch.randn(4, 300, generator=g), "n": {},
@@ -375,12 +448,18 @@ def test_quantized_sync_uses_kernels_on_cuda(cuda):
         return VmapBackend(use_kernel=use_kernel, device=device) \
             .quantized_all_mean(8)(mv(W), mv(anchor), key)
 
-    before = (mean_and_sqdev.launches, qsgd_quant.sqnorm.launches,
-              qsgd_quant.quantize.launches)
-    Wk, ak, sk = run(cuda, None)
-    assert (mean_and_sqdev.launches, qsgd_quant.sqnorm.launches,
-            qsgd_quant.quantize.launches) == \
-        (before[0] + 2, before[1] + 2, before[2] + 2 * 4)
+    def no_draw(*args, **kwargs):
+        raise AssertionError("prng.uniform called on the card's path")
+
+    counts = lambda: (mean_and_sqdev.launches, qsgd_quant.sqnorm.launches,
+                      qsgd_quant.quantize_keyed.launches,
+                      qsgd_quant.quantize.launches)
+    before = counts()
+    with monkeypatch.context() as m:
+        m.setattr(prng, "uniform", no_draw)
+        Wk, ak, sk = run(cuda, None)
+    assert counts() == (before[0] + 2, before[1] + 2, before[2] + 2 * 4,
+                        before[3])
     Wp, ap, sp = run(cuda, False)
     assert abs(float(sk) - float(sp)) <= 1e-5 * abs(float(sp))
     torch.testing.assert_close(Wk["a"], Wp["a"], rtol=1e-6, atol=1e-6)

@@ -1,5 +1,6 @@
 """The port's QSGD kernels (sqnorm, quantize, dequantize) against the
-reference, on the cases of ``tests/test_kernels.py``.
+reference, on the cases of ``tests/test_kernels.py``; the keyed quantize's
+CPU route against the plain version with ``prng.uniform``'s draw.
 
 On the CPU each wrapper takes its plain version; it is held against the
 Pallas kernels in interpret mode and the reference's jnp oracle with the
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from repro.kernels import qsgd_quant as jax_qq
+from repro_torch.core import prng
 from repro.kernels import ref as jax_ref
 from repro_torch.kernels import ops as torch_ops
 from repro_torch.kernels import qsgd_quant
@@ -197,3 +199,36 @@ def test_sqnorm_many_rejects_bad_groups():
                                 torch.ones(4, dtype=torch.int32)])
     with pytest.raises(ValueError, match="contiguous"):
         qsgd_quant.sqnorm_many([torch.ones(4), torch.randn(8, 4).T])
+
+
+@pytest.mark.parametrize("shape", [(7,), (1000,), (4097,), (33, 17),
+                                   (5, 4, 3)])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_quantize_keyed_cpu_route_is_plain_with_prng_uniform(shape, bits):
+    """On the CPU the keyed quantize is ``quantize_ref`` with
+    ``prng.uniform(key, shape)``, bit for bit, and launches nothing."""
+    x = torch.from_numpy(_xu(shape, len(shape) * 10 + bits)[0])
+    key = prng.split(prng.fold_in(prng.prng_key(2**31 + 5), bits), 4)[3]
+    norm = torch.sqrt(torch_ops.qsgd_sqnorm(x))
+    before = qsgd_quant.quantize_keyed.launches
+    lv = torch_ops.qsgd_quantize_keyed(x, key, norm, bits)
+    assert qsgd_quant.quantize_keyed.launches == before
+    want, _ = torch_ref.quantize_ref(x, prng.uniform(key, shape), bits,
+                                     norm=norm)
+    assert lv.dtype == torch.int8 and torch.equal(lv, want)
+    assert torch.equal(lv, torch_ops.qsgd_quantize(
+        x, prng.uniform(key, shape), norm, bits))
+
+
+def test_quantize_keyed_rejects_bad_inputs():
+    x, key = torch.randn(16), (0, 5)
+    with pytest.raises(TypeError):
+        qsgd_quant.quantize_keyed(x.double(), key, torch.ones(()))
+    with pytest.raises(ValueError, match="contiguous"):
+        qsgd_quant.quantize_keyed(torch.randn(8, 4).T, key, torch.ones(()))
+    with pytest.raises(ValueError, match="norm"):
+        qsgd_quant.quantize_keyed(x, key, torch.ones(2))
+    with pytest.raises(ValueError, match="key words"):
+        qsgd_quant.quantize_keyed(x, (0, 1 << 32), torch.ones(()))
+    with pytest.raises(ValueError, match="bits"):
+        qsgd_quant.quantize_keyed(x, key, torch.ones(()), bits=9)
