@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from bench import devtrace, inputs
+from bench.archs import arch_of
 from bench.cells import Cell
 
 # engine seeds: the port's key stream takes seed + 17 below 2^32
@@ -70,44 +71,18 @@ def sync() -> None:
 
 def port_config(cell: Cell, strict: bool = True):
     """The port's ModelConfig for the cell, every size taken from the
-    configuration file.  ``strict``: the port's own registered config
-    must state the same sizes but for the depth (a port config that no
-    longer matches the file fails the run rather than measuring another
-    model)."""
-    import inspect
-    from repro_torch.configs import MLAConfig, get_config
-    from repro_torch.models import layers
+    configuration file (the model's by its family's module,
+    ``bench/archs/<model_type>.py``).  ``strict``: the port's own
+    registered config must state the same sizes but for the depth (a port
+    config that no longer matches the file fails the run rather than
+    measuring another model)."""
+    from repro_torch.configs import get_config
     c, t, tr = cell.config, cell.traffic, cell.config["training"]
     base = get_config(c["port_arch"]).model
     kw = dict(n_layers=c["num_hidden_layers"], max_seq_len=t["seq"],
-              d_model=c["hidden_size"], n_heads=c["num_attention_heads"],
-              n_kv_heads=c["num_key_value_heads"], d_ff=c["intermediate_size"],
-              vocab_size=c["vocab_size"], rope_theta=float(c["rope_theta"]),
-              tie_embeddings=c["tie_word_embeddings"],
-              norm_eps=c.get("rms_norm_eps", c.get("norm_eps")),
               param_dtype=tr["param_dtype"], compute_dtype=tr["compute_dtype"],
-              remat=tr["remat"], remat_policy=tr["remat_policy"])
-    if c.get("kv_lora_rank"):
-        d = c["moe_dispatch"]
-        kw["mla"] = MLAConfig(
-            kv_lora_rank=c["kv_lora_rank"], q_lora_rank=c["q_lora_rank"] or 0,
-            qk_nope_head_dim=c["qk_nope_head_dim"],
-            qk_rope_head_dim=c["qk_rope_head_dim"],
-            v_head_dim=c["v_head_dim"])
-        kw["moe"] = dataclasses.replace(
-            base.moe, n_experts=c["n_routed_experts"],
-            top_k=c["num_experts_per_tok"],
-            d_ff_expert=c["moe_intermediate_size"],
-            n_shared_experts=c["n_shared_experts"],
-            first_k_dense=c["first_k_dense_replace"],
-            d_ff_dense=c["intermediate_size"],
-            capacity_factor=d["capacity_factor"],
-            router_aux_coef=d["router_aux_coef"],
-            router_z_coef=d["router_z_coef"])
-        group = inspect.signature(layers.moe_forward).parameters["group_size"]
-        if group.default != d["group_size"]:
-            raise RuntimeError(f"the port's MoE groups hold {group.default} "
-                               f"tokens, the file says {d['group_size']}")
+              remat=tr["remat"], remat_policy=tr["remat_policy"],
+              **arch_of(c).port_config_kwargs(c, t, base))
     cfg = dataclasses.replace(base, **kw)
     if strict:
         want = dataclasses.replace(base, n_layers=kw["n_layers"],

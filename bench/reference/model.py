@@ -1,6 +1,9 @@
-"""The models' forward pass and loss in plain PyTorch, written from the
-published descriptions and the configuration file (its ``reduced`` and
-``assumed`` entries say where the file departs from the published model).
+"""What the families' references share (``bench/reference/<model_type>.py``
+each define ``Ref``, a ``Decoder``): the precision of the weight
+products, RMSNorm, RoPE, the attention core, the SwiGLU MLP, the GShard
+capacity MoE and the decoder's loss.  Written from the published
+descriptions and the configuration file (its ``reduced`` and ``assumed``
+entries say where the file departs from the published model).
 
 Parameters are the benchmark's tree (``bench/inputs.py``): dense weights
 ``(d_in, d_out)``, products ``x @ w``.  ``precision`` is ``"f32"`` (the
@@ -34,14 +37,16 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
                 - x.detach())
 
 
-class Ref:
+class Decoder:
+    """A decoder-only language model; a family defines ``block(p, x)``,
+    which returns the layer's output and its aux loss, and ``norm(p, x)``
+    for the final norm."""
+
     def __init__(self, cfg: Dict, precision: str = "f32"):
         if precision not in ("f32", "fp8"):
             raise ValueError(precision)
         self.c = cfg
         self.precision = precision
-        self.mla = bool(cfg.get("kv_lora_rank"))
-        self.eps = cfg.get("rms_norm_eps", cfg.get("norm_eps"))
 
     # -- pieces ---------------------------------------------------------
     def mm(self, x, w):
@@ -49,13 +54,9 @@ class Ref:
             return _bf16(_fp8(x) @ _fp8(w))
         return x @ w
 
-    def norm(self, p, x):
-        if self.mla:                                   # RMSNorm, scaled
-            return x * torch.rsqrt(x.square().mean(-1, keepdim=True)
-                                   + self.eps) * p["scale"]
-        mu = x.mean(-1, keepdim=True)                  # OLMo: no affine
-        var = (x - mu).square().mean(-1, keepdim=True)
-        return (x - mu) * torch.rsqrt(var + self.eps)
+    def rms_norm(self, p, x, eps):
+        return x * torch.rsqrt(x.square().mean(-1, keepdim=True)
+                               + eps) * p["scale"]
 
     def rope(self, x, theta):
         """Rotary embedding on (B, S, H, d), the halves convention: dims
@@ -78,42 +79,21 @@ class Ref:
         s = s.masked_fill(~mask, float("-inf"))
         return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v)
 
-    def attention(self, p, x):
-        c = self.c
-        B, S, D = x.shape
-        H = c["num_attention_heads"]
-        if self.mla:
-            nope, rope = c["qk_nope_head_dim"], c["qk_rope_head_dim"]
-            r, vd = c["kv_lora_rank"], c["v_head_dim"]
-            q = self.mm(x, p["wq"]["w"]).view(B, S, H, nope + rope)
-            q = torch.cat([q[..., :nope], self.rope(q[..., nope:],
-                                                   c["rope_theta"])], -1)
-            kv_a = self.mm(x, p["wkv_a"]["w"])
-            latent = self.norm(p["kv_norm"], kv_a[..., :r])
-            k_rope = self.rope(kv_a[..., None, r:], c["rope_theta"])
-            kv = self.mm(latent, p["wkv_b"]["w"]).view(B, S, H, nope + vd)
-            k = torch.cat([kv[..., :nope], k_rope.expand(B, S, H, rope)], -1)
-            o = self.attend(q, k, kv[..., nope:])
-            return self.mm(o.reshape(B, S, H * vd), p["wo"]["w"])
-        dh = D // H
-        q, k, v = (self.mm(x, p[n]["w"]).view(B, S, H, dh)
-                   for n in ("wq", "wk", "wv"))
-        q, k = self.rope(q, c["rope_theta"]), self.rope(k, c["rope_theta"])
-        return self.mm(self.attend(q, k, v).reshape(B, S, D), p["wo"]["w"])
-
     def swiglu(self, p, x):
         return self.mm(F.silu(self.mm(x, p["w_gate"]["w"]))
                        * self.mm(x, p["w_up"]["w"]), p["w_down"]["w"])
 
-    def moe(self, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
-        """GShard dispatch with capacity (the file's ``moe_dispatch``):
-        tokens in groups, softmax router, top-k (ties to the lower expert),
-        the k gates renormalised, each (token, choice) queued at its
-        expert in token-then-choice order and dropped past the capacity;
-        one-hot dispatch and combine.  Returns (output, aux loss)."""
-        c, d = self.c, self.c["moe_dispatch"]
+    def gshard_moe(self, p, x, n_experts: int, top_k: int, norm_topk: bool,
+                   d: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """GShard dispatch with capacity (``d``, the file's
+        ``moe_dispatch``) over ``n_experts`` SwiGLU experts: tokens in
+        groups, softmax router, top-k (ties to the lower expert), the k
+        gates renormalised when ``norm_topk``, each (token, choice)
+        queued at its expert in token-then-choice order and dropped past
+        the capacity; one-hot dispatch and combine; the shared experts
+        (``p["shared"]``) added.  Returns (output, aux loss)."""
         B, S, D = x.shape
-        E, k = c["n_routed_experts"], c["num_experts_per_tok"]
+        E, k = n_experts, top_k
         T = B * S
         Sg = min(d["group_size"], T)
         while T % Sg:
@@ -125,7 +105,7 @@ class Ref:
         probs = logits.softmax(-1)
         gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
         gate, idx = gate[..., :k], idx[..., :k]
-        if c["norm_topk_prob"]:
+        if norm_topk:
             gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
         choice = F.one_hot(idx, E).to(torch.float32)          # (G, Sg, k, E)
         queue = choice.reshape(G, Sg * k, E).cumsum(1).reshape(G, Sg, k, E)
@@ -147,18 +127,9 @@ class Ref:
         aux = d["router_aux_coef"] * balance + d["router_z_coef"] * z
         return y, aux
 
-    def block(self, p, x):
-        x = x + self.attention(p["attn"], self.norm(p.get("norm1"), x))
-        h = self.norm(p.get("norm2"), x)
-        if "moe" in p:
-            y, aux = self.moe(p["moe"], h)
-        else:
-            y, aux = self.swiglu(p["mlp"], h), x.new_zeros(())
-        return x + y, aux
-
     # -- the loss ------------------------------------------------------
     def loss(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """Mean next-token cross-entropy over (b, S) tokens, plus the MoE
+        """Mean next-token cross-entropy over (b, S) tokens, plus the
         layers' aux losses."""
         x = params["embed"][tokens.long()]
         aux_total = x.new_zeros(())

@@ -1,5 +1,6 @@
 """The reference's first iterations of a cell's training job, in f32 with
-TF32 off: R replicas of the model from the same initial weights, each on
+TF32 off: R replicas of the model (its family's ``Ref``,
+``bench/reference/<model_type>.py``) from the same initial weights, each on
 its own rows of every batch; adamw (decoupled weight decay, bias
 correction); the strategy's schedule (syncs at every iteration below
 ``warmup_sync``, then every ``p_init``-th: ADPSGD's sampling phase); a
@@ -14,12 +15,12 @@ replica's first gradient by leaf and each replica's change by leaf after
 the iterations followed."""
 from __future__ import annotations
 
+import importlib
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from bench.reference import threefry
-from bench.reference.model import Ref
 
 
 def leaves(tree) -> List[torch.Tensor]:
@@ -109,6 +110,19 @@ def qsgd_exchange(W: List[List[torch.Tensor]], anchor: List[torch.Tensor],
     return s_k
 
 
+def family_ref(cfg: Dict):
+    """The ``Ref`` of ``bench/reference/<model_type>.py``."""
+    name = cfg["model_type"]
+    try:
+        return importlib.import_module(f"bench.reference.{name}").Ref
+    except ModuleNotFoundError as e:
+        if e.name != f"bench.reference.{name}":
+            raise
+        raise ModuleNotFoundError(f"no reference for the model family "
+                                  f"'{name}': add bench/reference/{name}.py",
+                                  name=e.name) from e
+
+
 def follow(cfg: Dict, traffic: Dict, params0, params_host, tokens,
            engine_seed: int, precision: str = "f32",
            steps: int = 3) -> Dict[str, list]:
@@ -119,7 +133,7 @@ def follow(cfg: Dict, traffic: Dict, params0, params_host, tokens,
     tr = cfg["training"]
     b1, b2, eps, wd = (tr["adam_b1"], tr["adam_b2"], tr["adam_eps"],
                        tr["weight_decay"])
-    ref = Ref(cfg, precision)
+    ref = family_ref(cfg)(cfg, precision)
     R = traffic["replicas"]
     device = tokens.device
     W0 = [x.to(device, torch.float32) for x in params_host]

@@ -30,19 +30,47 @@ def test_no_jax(path):
     assert not set(imported(path)) & {"jax", "jaxlib", "flax", "repro"}
 
 
+def dynamic_imports(path: Path):
+    """The leading constant text of each ``import_module`` call's module
+    name ("" where it starts with no constant)."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", "") \
+                == "import_module":
+            arg = node.args[0] if node.args else None
+            if isinstance(arg, ast.JoinedStr) and arg.values:
+                arg = arg.values[0]
+            yield str(arg.value) if isinstance(arg, ast.Constant) else ""
+
+
 @pytest.mark.parametrize("path", sorted((BENCH / "reference").rglob("*.py")),
                          ids=lambda p: p.name)
 def test_reference_is_plain(path):
+    """The reference imports the standard library's plainest modules,
+    torch and its own files; a module it imports by name (a family's
+    ``Ref``) is one of its own files too."""
     names = set(imported(path))
     assert "repro_torch" not in names
-    assert names <= {"__future__", "math", "typing", "torch", "bench"}
+    assert names <= {"__future__", "importlib", "math", "typing", "torch",
+                     "bench"}
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.ImportFrom) and node.module \
                 and node.module.startswith("bench"):
             assert node.module.startswith("bench.reference")
+    for prefix in dynamic_imports(path):
+        assert prefix.startswith("bench.reference."), prefix
 
 
 def test_whole_name_rule(tmp_path):
     p = tmp_path / "probe.py"
     p.write_text("import repro_torch.models\nfrom repro.core import x\n")
     assert list(imported(p)) == ["repro_torch", "repro"]
+
+
+def test_dynamic_import_prefix(tmp_path):
+    p = tmp_path / "probe.py"
+    p.write_text("import importlib\n"
+                 "importlib.import_module(f'bench.reference.{n}')\n"
+                 "importlib.import_module(f'repro_torch.{n}')\n"
+                 "importlib.import_module(name)\n")
+    assert list(dynamic_imports(p)) == ["bench.reference.", "repro_torch.",
+                                        ""]

@@ -5,6 +5,7 @@ import math
 import pytest
 
 from bench import yardstick as y
+from bench.archs import arch_of
 from bench.cells import load_json
 
 
@@ -12,7 +13,7 @@ def test_olmo_flops_by_hand():
     c = load_json("configs", "olmo-1b")
     D, F, V, L, S = 2048, 8192, 50304, 16, 2048
     macs = L * (4 * D * D + 3 * D * F) + D * V
-    assert y.matmul_macs_per_token(c) == macs == 1_176_764_416
+    assert arch_of(c).matmul_macs_per_token(c) == macs == 1_176_764_416
     attn = L * 4 * 128 * 16 * (S * (S + 1) // 2)
     assert y.train_flops_per_sequence(c, S) == 3 * (2 * macs * S + attn)
     # 8,192 tokens a step: 6.11e13 FLOPs
@@ -28,7 +29,7 @@ def test_deepseek_flops_by_hand():
     moe = D * 64 + 3 * D * 1408 * 2 + 3 * D * 1408 * 6
     head = D * 102400
     macs = 2 * mla + dense + moe + head
-    assert y.matmul_macs_per_token(c) == macs
+    assert arch_of(c).matmul_macs_per_token(c) == macs
     attn = 2 * 2 * (192 + 128) * H * (S * (S + 1) // 2)
     assert y.train_flops_per_sequence(c, S) == 3 * (2 * macs * S + attn)
 

@@ -3,12 +3,15 @@ program cannot move the yardstick: the H100's published peaks, the byte
 and operation counts of the port's sync and QSGD kernels (copied from
 ``repro_torch/kernels/cost.py``), the kernel-name categories (copied from
 ``repro_torch/launch/profile.py``) and the model FLOPs of a training step,
-counted from a configuration file's shapes.
+counted from a configuration file's shapes by its family's module
+(``bench/archs/<model_type>.py``).
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, Sequence, Tuple
+
+from bench.archs import arch_of
 
 # NVIDIA H100 SXM data sheet, dense rates, at the 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -88,57 +91,12 @@ def causal_pairs(seq: int) -> int:
     return seq * (seq + 1) // 2
 
 
-def matmul_macs_per_token(cfg: Dict) -> int:
-    """Multiply-adds of every weight matrix one token passes in a forward
-    pass: attention projections, the MLP or the router, the shared
-    experts and ``num_experts_per_tok`` routed experts, and the output
-    head (tied or not).  The embedding lookup is no product."""
-    D = cfg["hidden_size"]
-    V = cfg["vocab_size"]
-    H = cfg["num_attention_heads"]
-    layers = cfg["num_hidden_layers"]
-    macs = D * V                                   # output head
-    for i in range(layers):
-        if cfg.get("kv_lora_rank"):                # MLA
-            qk = cfg["qk_nope_head_dim"] + cfg["qk_rope_head_dim"]
-            macs += (D * H * qk
-                     + D * (cfg["kv_lora_rank"] + cfg["qk_rope_head_dim"])
-                     + cfg["kv_lora_rank"] * H * (cfg["qk_nope_head_dim"]
-                                                  + cfg["v_head_dim"])
-                     + H * cfg["v_head_dim"] * D)
-        else:
-            dh = D // H
-            K = cfg["num_key_value_heads"]
-            macs += D * H * dh + 2 * D * K * dh + H * dh * D
-        dense = (cfg.get("n_routed_experts") is None
-                 or i < cfg.get("first_k_dense_replace", 0))
-        if dense:
-            macs += 3 * D * cfg["intermediate_size"]
-        else:
-            Fe = cfg["moe_intermediate_size"]
-            macs += D * cfg["n_routed_experts"]
-            macs += 3 * D * Fe * cfg.get("n_shared_experts", 0)
-            macs += 3 * D * Fe * cfg["num_experts_per_tok"]
-    return macs
-
-
-def attention_flops_per_sequence(cfg: Dict, seq: int) -> int:
-    """q·k and p·v of every layer: two multiply-adds per (query, key)
-    pair, head and dimension (the key width for q·k, the value width for
-    p·v), over the pairs a causal mask lets through."""
-    H = cfg["num_attention_heads"]
-    if cfg.get("kv_lora_rank"):
-        width = (cfg["qk_nope_head_dim"] + cfg["qk_rope_head_dim"]
-                 + cfg["v_head_dim"])
-    else:
-        width = 2 * (cfg["hidden_size"] // H)
-    return 2 * width * H * causal_pairs(seq) * cfg["num_hidden_layers"]
-
-
 def train_flops_per_sequence(cfg: Dict, seq: int) -> int:
     """Model FLOPs of one training sequence: the forward (2 FLOPs a
-    multiply-add) and the backward at twice the forward; the recompute of
-    activation checkpointing is not counted."""
-    forward = 2 * matmul_macs_per_token(cfg) * seq \
-        + attention_flops_per_sequence(cfg, seq)
+    multiply-add of the family's weight matrices, ``bench/archs/``, and
+    its token mixing's FLOPs) and the backward at twice the forward; the
+    recompute of activation checkpointing is not counted."""
+    arch = arch_of(cfg)
+    forward = 2 * arch.matmul_macs_per_token(cfg) * seq \
+        + arch.mixer_flops_per_sequence(cfg, seq)
     return 3 * forward
